@@ -1,0 +1,7 @@
+"""repro_torch: the PyTorch/CUDA port of the serving half of ``repro``.
+
+Module names mirror ``src/repro/``.  The package imports ``torch`` and
+``numpy`` only; each kernel of the serving path is a hand-written CUDA
+C++ kernel for Hopper (``csrc/``), with a plain PyTorch version beside it
+that runs whenever the tensors lie on the CPU.
+"""

@@ -1,0 +1,121 @@
+"""Bridge between the reference's parameter and cache pytrees (as numpy
+arrays) and the port's per-layer dictionaries.
+
+The reference (``src/repro/model/transformer.py``) stacks the layers of
+each pattern slot for ``lax.scan``: ``decoder.slots[s]`` leaves carry a
+leading repeat axis, and layers past the last full period sit in
+``decoder.tail``.  Stacked slot ``s``, repeat ``r`` is the port's layer
+``r·period + s``; tail entry ``i`` is layer ``repeats·period + i``.
+Caches follow ``transformer.py:363-367``: ``slots`` entries carry batch
+on axis 1 (after the repeat axis), ``tail`` entries on axis 0.
+
+Matmul weights keep the reference's ``(in, out)`` orientation.  A JAX
+bf16 array arrives in numpy as the ``bfloat16`` extension dtype; it is
+viewed as ``uint16`` and reinterpreted as ``torch.bfloat16``, so the
+bits are carried over unchanged.  On the way back, bf16 tensors become
+``uint16`` arrays holding the same bits (the port does not depend on
+the package that defines numpy's ``bfloat16``).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List
+
+import numpy as np
+import torch
+
+from .configs.registry import ArchConfig
+from .model.layers import device_of
+from .model.transformer import check_supported, pattern_period
+
+
+def to_torch(a: Any, device="cuda") -> torch.Tensor:
+    a = np.array(a)     # a writable copy: JAX hands out read-only arrays
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device_of(device))
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _map(fn: Callable, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _stack(trees: List[Any]):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return np.stack(trees)
+
+
+def _unstack(stack: Dict, cfg: ArchConfig, pick: Callable) -> List[Any]:
+    """Per-layer list from a ``{"slots", "tail"}`` stack."""
+    period = pattern_period(cfg)
+    n = len(check_supported(cfg))
+    repeats = n // period
+    layers: List[Any] = [None] * n
+    for s, slot in enumerate(stack["slots"]):
+        for r in range(repeats if slot is not None else 0):
+            layers[r * period + s] = pick(slot, r)
+    for i, lt in enumerate(stack["tail"]):
+        layers[repeats * period + i] = lt
+    return layers
+
+
+def _restack(layers: List[Any], cfg: ArchConfig, empty: List[Any]) -> Dict:
+    """Inverse of :func:`_unstack`.  With fewer layers than one period
+    the reference leaves ``empty`` as the slots: ``[None] * period`` in
+    parameters (``transformer.py:124-128``), ``[]`` in caches (``:356``)."""
+    period = pattern_period(cfg)
+    repeats = len(layers) // period
+    slots = [_stack([layers[r * period + s] for r in range(repeats)])
+             for s in range(period)] if repeats else empty
+    return {"slots": slots, "tail": list(layers[repeats * period:])}
+
+
+def params_from_numpy(tree: Dict, cfg: ArchConfig, device="cuda") -> Dict:
+    """The reference's ``init_params`` pytree (numpy leaves) → the port's
+    parameters on ``device``."""
+    layers = _unstack(tree["decoder"], cfg,
+                      lambda slot, r: _map(lambda a: np.asarray(a)[r], slot))
+    conv = lambda a: to_torch(a, device)  # noqa: E731
+    p = {"embed": conv(tree["embed"]), "final_ln": conv(tree["final_ln"]),
+         "layers": [_map(conv, lt) for lt in layers]}
+    if "lm_head" in tree:
+        p["lm_head"] = conv(tree["lm_head"])
+    return p
+
+
+def params_to_numpy(params: Dict, cfg: ArchConfig) -> Dict:
+    """Inverse of :func:`params_from_numpy` (bf16 leaves as ``uint16``
+    bits)."""
+    layers = [_map(to_numpy, lt) for lt in params["layers"]]
+    tree = {"embed": to_numpy(params["embed"]),
+            "final_ln": to_numpy(params["final_ln"]),
+            "decoder": _restack(layers, cfg, [None] * pattern_period(cfg))}
+    if "lm_head" in params:
+        tree["lm_head"] = to_numpy(params["lm_head"])
+    return tree
+
+
+def cache_from_numpy(tree: Dict, cfg: ArchConfig, device="cuda") -> List[Dict]:
+    """The reference's ``init_cache`` pytree → the port's per-layer
+    cache; both have batch first within a layer."""
+    layers = _unstack(tree, cfg,
+                      lambda slot, r: _map(lambda a: np.asarray(a)[r], slot))
+    return [_map(lambda a: to_torch(a, device), lc) for lc in layers]
+
+
+def cache_to_numpy(cache: List[Dict], cfg: ArchConfig) -> Dict:
+    return _restack([_map(to_numpy, lc) for lc in cache], cfg, [])

@@ -1,0 +1,436 @@
+"""Batched serving launcher: continuous batching over the planned kernels.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \
+        [--batch 4 --prompt-len 16 --gen 12 --chunk 16] [--kernels] \
+        [--smoke] [--device cuda|cpu]
+
+Ports ``src/repro/launch/serve.py``.  Full width on ``cuda`` is the
+default; ``--smoke`` opts in to the reduced config and ``--device cpu``
+to the CPU, where the kernels' plain versions run.
+
+* :class:`ServeEngine` — the alternating baseline: whole-prompt prefill
+  into a slot, then lock-step decode of every slot at a shared
+  ``max(lengths)`` cache length.
+* :class:`ContinuousEngine` — per-request FIFO admission into free
+  slots (each zeroed first), prompt prefill in fixed-size chunks
+  interleaved with decode ticks, ragged per-slot cache lengths and paged
+  KV — a tick reads only the page-aligned used prefix of the cache, the
+  page size from ``plan_attention``'s kk tile.  The decode state (last
+  token, lengths, generated-token buffer) lives on the device; the host
+  keeps exact mirrors of lengths and counters, so admission and
+  retirement never read the device, and a request's tokens are read once,
+  when it retires.  With ``use_kernels=True`` the layers route through
+  the Hopper kernels (see :mod:`repro_torch.model.kernel_mode`).
+
+The reference fuses up to 16 steady-state decode steps into one
+``lax.scan`` dispatch; here they run as a loop of decode ticks with the
+same host bookkeeping.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Optional
+
+import torch
+
+from ..configs.registry import get_arch
+from ..model import transformer as T
+from ..model.kernel_mode import kernel_mode
+from ..model.layers import device_of, make_generator
+from ..plan import plan_attention, plan_matmul
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: torch.Tensor           # (1, plen) token ids
+    generated: List[int] = field(default_factory=list)
+    done: bool = False
+    max_new: int = 0               # 0 = engine default
+    t_submit: float = 0.0
+    t_first: float = 0.0           # first generated token (prefill done)
+    token_times: List[float] = field(default_factory=list)
+
+
+def _tokens(x, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.long, device=device)
+
+
+def _merge_slot(cache: T.Cache, pre: T.Cache, slot: int) -> T.Cache:
+    """Write a b=1 prefill cache (``pre``, ``plen`` rows) into batch slot
+    ``slot`` of ``cache``."""
+    for lc, pc in zip(cache, pre):
+        for name, t in lc.items():
+            src = pc[name]
+            t[slot:slot + 1, :src.shape[1]] = src.to(t.dtype)
+    return cache
+
+
+class ServeEngine:
+    """Fixed-batch decode engine with greedy sampling (alternating
+    prefill/decode baseline)."""
+
+    def __init__(self, cfg, params, batch: int, max_len: int):
+        self.cfg, self.params = cfg, params
+        self.device = params["embed"].device
+        self.batch, self.max_len = batch, max_len
+        self.cache = T.init_cache(cfg, batch, max_len, self.device)
+        self.tokens = torch.zeros((batch, 1), dtype=torch.long,
+                                  device=self.device)
+        self.lengths = [0] * batch
+        self.slots: List[Optional[Request]] = [None] * batch
+
+    def admit(self, req: Request, slot: int):
+        req.prompt = _tokens(req.prompt, self.device)
+        logits, pre = T.prefill(self.params, self.cfg, req.prompt)
+        # zero the slot's rows first (reused-slot hygiene: a shorter new
+        # prompt must not expose the previous occupant's KV rows through
+        # the shared max(lengths) decode mask), then merge
+        _merge_slot(T.zero_cache_slot(self.cache, slot), pre, slot)
+        self.slots[slot] = req
+        self.lengths[slot] = req.prompt.shape[1]
+        nxt = int(torch.argmax(logits[0]))
+        req.generated.append(nxt)
+        self.tokens[slot, 0] = nxt
+
+    def step(self):
+        n = max(self.lengths)
+        logits, self.cache = T.decode_step(self.params, self.cfg, self.tokens,
+                                           self.cache, n)
+        nxt = torch.argmax(logits, -1)
+        self.tokens = nxt[:, None]
+        host = nxt.tolist()
+        for i, req in enumerate(self.slots):
+            if req is not None and not req.done:
+                req.generated.append(host[i])
+                self.lengths[i] += 1
+
+
+FREE, PREFILL, DECODE = 0, 1, 2
+
+
+class ContinuousEngine:
+    """Continuous-batching engine: per-request admission, chunked
+    prefill interleaved with decode ticks, ragged paged KV.
+
+    ``eos``-triggered stopping and ``sync=True`` (per-token latency
+    measurement) read the new tokens once per tick; otherwise the loop
+    reads the device only when a request retires."""
+
+    def __init__(self, cfg, params, batch: int, max_len: int, *,
+                 chunk: int = 16, page: Optional[int] = None,
+                 use_kernels: bool = False, max_new: int = 16,
+                 eos: Optional[int] = None, sync: bool = False,
+                 kernel_opts: Optional[Dict] = None):
+        self.cfg, self.params = cfg, params
+        self.device = dev = params["embed"].device
+        self.batch, self.max_len = batch, max_len
+        self.chunk, self.max_new, self.eos = chunk, max_new, eos
+        self.sync = sync or eos is not None
+        # kernel_opts: extra KernelMode fields (threshold overrides for
+        # small-shape parity tests; see model/kernel_mode.py)
+        self._mode_kw = dict(enabled=use_kernels, **(kernel_opts or {}))
+        # paged-KV geometry from the plan: the attention plan's kk tile
+        # is the unit the flash kernel streams, so pages align with
+        # kernel tiles
+        plan = plan_attention(max(chunk, 8), max_len, cfg.hd)
+        self.page = page or max(min(plan.tile["kk"], max_len), 8)
+
+        self.cache = T.init_cache(cfg, batch, max_len, dev)
+        # device-resident decode state
+        self.toks = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+        self.lens = torch.zeros((batch,), dtype=torch.long, device=dev)
+        self.buf = torch.zeros((batch, max_new), dtype=torch.long, device=dev)
+        self.pos = torch.zeros((batch,), dtype=torch.long, device=dev)
+        self._rows = torch.arange(batch, device=dev)
+        self.lengths = [0] * batch          # host mirror of lens
+        self.gen_count = [0] * batch        # host mirror of pos
+        self.state = [FREE] * batch
+        self.slots: List[Optional[Request]] = [None] * batch
+        self.prefill_pos = [0] * batch
+        self.queue: Deque[Request] = deque()
+        self._active = torch.zeros((batch,), dtype=torch.bool, device=dev)
+        # tick accounting for the prefill/decode overlap ratio
+        self.ticks = self.ticks_decode = self.ticks_prefill = 0
+        self.ticks_overlap = 0
+
+    # -- device-side tick bodies ---------------------------------------------
+    def _decode_tick(self, kv: int) -> torch.Tensor:
+        act = self._active
+        logits, self.cache = T.serve_decode_step(
+            self.params, self.cfg, self.toks, self.cache, self.lens, act, kv)
+        nxt = torch.argmax(logits, -1)                               # (b,)
+        self.toks = torch.where(act[:, None], nxt[:, None], self.toks)
+        at = self.pos.clamp(max=self.buf.shape[1] - 1)
+        self.buf[self._rows, at] = torch.where(act, nxt, self.buf[self._rows, at])
+        self.lens = self.lens + act
+        self.pos = self.pos + act
+        return nxt
+
+    def _chunk_tick(self, toks: torch.Tensor, off: int, slot: int, last: bool,
+                    kv: int):
+        sub = T.cache_slot_view(self.cache, slot)
+        logits, sub = T.chunk_step(self.params, self.cfg, toks, sub, off, kv)
+        T.cache_slot_write(self.cache, sub, slot)
+        self.lens[slot] = off + toks.shape[1]
+        if last:
+            # final chunk: its last-position logits seed decoding
+            ctok = torch.argmax(logits[0, -1])
+            self.toks[slot, 0] = ctok
+            self.buf[slot, 0] = ctok
+            self.pos[slot] = 1
+
+    def _mixed_tick(self, toks, off, slot, last, kv_d, kv_p) -> torch.Tensor:
+        # overlap tick: decode every active slot AND land one prefill
+        # chunk.  Decode runs first: its garbage write into the
+        # prefilling slot (row = that slot's current length) is
+        # overwritten by the chunk that follows.
+        nxt = self._decode_tick(kv_d)
+        self._chunk_tick(toks, off, slot, last, kv_p)
+        return nxt
+
+    # -- admission -------------------------------------------------------
+    def submit(self, req: Request):
+        req.prompt = _tokens(req.prompt, self.device)
+        plen = req.prompt.shape[1]
+        if plen + (req.max_new or self.max_new) > self.max_len:
+            raise ValueError(f"request {req.rid} exceeds max_len")
+        if (req.max_new or self.max_new) > self.buf.shape[1]:
+            raise ValueError(f"request {req.rid} exceeds token buffer")
+        req.t_submit = req.t_submit or time.time()
+        self.queue.append(req)
+
+    def _set_state(self, i: int, st: int):
+        self.state[i] = st
+        self._active = torch.tensor([s == DECODE for s in self.state],
+                                    dtype=torch.bool, device=self.device)
+
+    def _admit_free_slots(self):
+        for i in range(self.batch):
+            if not self.queue:
+                return
+            if self.state[i] == FREE:
+                req = self.queue.popleft()
+                # reused-slot hygiene: drop every cache row the previous
+                # occupant wrote before the new request's chunks land
+                T.zero_cache_slot(self.cache, i)
+                self.lens[i] = 0
+                self.pos[i] = 0
+                self.slots[i] = req
+                self._set_state(i, PREFILL)
+                self.prefill_pos[i] = 0
+                self.lengths[i] = 0
+                self.gen_count[i] = 0
+
+    def _bucket(self, need: int) -> int:
+        return min(-(-need // self.page) * self.page, self.max_len)
+
+    # -- one engine tick -------------------------------------------------
+    def tick(self) -> bool:
+        """Run one engine iteration; returns True if any work was done."""
+        with kernel_mode(**self._mode_kw):
+            return self._tick()
+
+    def _tick(self) -> bool:
+        self._admit_free_slots()
+        decoding = [i for i in range(self.batch) if self.state[i] == DECODE]
+        prefilling = [i for i in range(self.batch)
+                      if self.state[i] == PREFILL]
+        if not decoding and not prefilling:
+            return False
+        self.ticks += 1
+        nxt_dev = None
+
+        if decoding and not prefilling and not self.queue and not self.sync:
+            # steady state: every slot is decoding and nothing is waiting,
+            # so run up to 16 greedy steps back to back.  Safe because
+            # retirement is count-based host bookkeeping: the earliest any
+            # slot can retire is min remaining-budget steps away, and a
+            # roomier kv bucket only adds exact-zero masked rows.
+            rem = min((self.slots[i].max_new or self.max_new)
+                      - self.gen_count[i] for i in decoding)
+            k = min(rem, 16)
+            k = 1 << (k.bit_length() - 1)
+            if k > 1:
+                kv = self._bucket(max(self.lengths[i] for i in decoding) + k)
+                for _ in range(k):
+                    self._decode_tick(kv)
+                self.ticks += k - 1
+                self.ticks_decode += k
+                for i in decoding:
+                    self.lengths[i] += k
+                    self.gen_count[i] += k
+                    self._maybe_retire(i)
+                return True
+
+        kv_d = (self._bucket(max(self.lengths[i] for i in decoding) + 1)
+                if decoding else 0)
+        ci = prefilling[0] if prefilling else None
+        if ci is not None:
+            req = self.slots[ci]
+            off = self.prefill_pos[ci]
+            c = min(self.chunk, req.prompt.shape[1] - off)
+            toks = req.prompt[:, off:off + c]
+            kv_p = self._bucket(off + c)
+            last = off + c == req.prompt.shape[1]
+
+        if decoding and ci is not None:
+            nxt_dev = self._mixed_tick(toks, off, ci, last, kv_d, kv_p)
+            self.ticks_decode += 1
+            self.ticks_prefill += 1
+            self.ticks_overlap += 1
+        elif decoding:
+            nxt_dev = self._decode_tick(kv_d)
+            self.ticks_decode += 1
+        else:
+            self._chunk_tick(toks, off, ci, last, kv_p)
+            self.ticks_prefill += 1
+
+        if decoding:
+            for i in decoding:
+                self.lengths[i] += 1
+                self.gen_count[i] += 1
+        if ci is not None:
+            self.prefill_pos[ci] = off + c
+            self.lengths[ci] = off + c
+            if last:
+                self._set_state(ci, DECODE)
+                self.gen_count[ci] = 1
+
+        if self.sync:
+            # per-token observation: one fetch per tick (EOS stopping /
+            # latency measurement)
+            nxt = nxt_dev.tolist() if nxt_dev is not None else None
+            now = time.time()
+            for i in decoding:
+                req = self.slots[i]
+                req.generated.append(nxt[i])
+                req.token_times.append(now)
+            if ci is not None and self.state[ci] == DECODE \
+                    and self.gen_count[ci] == 1:
+                req = self.slots[ci]
+                req.t_first = now
+                req.generated.append(int(self.toks[ci, 0]))
+                req.token_times.append(now)
+
+        for i in range(self.batch):
+            if self.state[i] == DECODE:
+                self._maybe_retire(i)
+        return True
+
+    def _maybe_retire(self, i: int):
+        req = self.slots[i]
+        limit = req.max_new or self.max_new
+        if self.gen_count[i] >= limit or \
+                (self.eos is not None and req.generated
+                 and req.generated[-1] == self.eos):
+            if not self.sync:
+                # one blocking read per request: its finished token row
+                req.generated = self.buf[i, :self.gen_count[i]].tolist()
+            req.done = True
+            self._set_state(i, FREE)
+            self.lengths[i] = 0
+
+    def run(self) -> int:
+        """Tick until the queue and all slots drain; returns tick count."""
+        n = 0
+        while self.tick():
+            n += 1
+        return n
+
+    def reset(self):
+        """Back to the post-init state."""
+        for lc in self.cache:
+            for t in lc.values():
+                t.zero_()
+        for t in (self.toks, self.lens, self.buf, self.pos):
+            t.zero_()
+        b = self.batch
+        self.lengths = [0] * b
+        self.gen_count = [0] * b
+        self.state = [FREE] * b
+        self.slots = [None] * b
+        self.prefill_pos = [0] * b
+        self.queue.clear()
+        self._active = torch.zeros((b,), dtype=torch.bool, device=self.device)
+        self.ticks = self.ticks_decode = self.ticks_prefill = 0
+        self.ticks_overlap = 0
+
+    def overlap_ratio(self) -> float:
+        busy = max(self.ticks_decode + self.ticks_prefill
+                   - self.ticks_overlap, 1)
+        return self.ticks_overlap / busy
+
+
+def warm_kernel_plans(cfg, max_len: int, chunk: int = 16) -> None:
+    """Plan the serving kernels up front (in-process; the port has no
+    schedd client)."""
+    plans = [plan_matmul(cfg.d_model, cfg.d_ff, cfg.d_model),
+             plan_attention(max_len, max_len, cfg.hd),
+             plan_attention(max(chunk, 8), max_len, cfg.hd)]
+    print(f"serve: {len(plans)} kernel plans warmed in-process")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite_3_2b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=12)
+    ap.add_argument("--engine", choices=("alternating", "continuous"),
+                    default="continuous")
+    ap.add_argument("--chunk", type=int, default=16)
+    ap.add_argument("--kernels", action="store_true",
+                    help="route through the Hopper kernels (plain versions "
+                         "on the CPU)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config instead of full width")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    dev = device_of(args.device)
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    max_len = args.prompt_len + args.gen + 1
+    warm_kernel_plans(cfg, max_len, args.chunk)
+    params = T.init_params(cfg, seed=args.seed, device=dev)
+    gen = make_generator(args.seed + 1, dev)
+    prompts = [torch.randint(2, cfg.vocab, (1, args.prompt_len),
+                             generator=gen, device=dev)
+               for _ in range(args.batch)]
+    t0 = time.perf_counter()
+    if args.engine == "alternating":
+        eng = ServeEngine(cfg, params, args.batch, max_len)
+        for i, prompt in enumerate(prompts):
+            eng.admit(Request(i, prompt), slot=i)
+        for _ in range(args.gen - 1):
+            eng.step()
+        reqs = [r for r in eng.slots if r is not None]
+    else:
+        ceng = ContinuousEngine(cfg, params, args.batch, max_len,
+                                chunk=args.chunk, use_kernels=args.kernels,
+                                max_new=args.gen)
+        reqs = [Request(i, p) for i, p in enumerate(prompts)]
+        for r in reqs:
+            ceng.submit(r)
+        ceng.run()
+        print(f"overlap ratio: {ceng.overlap_ratio():.2f}, page={ceng.page}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    ntok = sum(len(r.generated) for r in reqs)
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"{len(reqs)} seqs, {ntok} tokens in {dt:.2f}s "
+          f"({ntok / max(dt, 1e-9):.1f} tok/s on {where}, {cfg.name}, "
+          f"{args.engine})")
+    for req in reqs:
+        print(f"req{req.rid}: {req.generated[:10]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,196 @@
+"""GQA attention with KV-cache decode, chunked prefill and paged decode.
+
+Ports the main-path functions of ``src/repro/model/attention.py``:
+``_qkv``, ``_sdpa``, ``causal_mask``, ``attention``,
+``decode_attention``, ``chunk_attention`` and ``paged_decode_attention``.
+Sliding-window layers keep their mask; ``_sdpa_chunked``, cross and
+non-causal attention and M-RoPE come with the families that need them.
+
+The reference's functions are pure; here the cache updates are made in
+place (the returned cache tensors are the ones passed in), which saves a
+copy of every layer's cache per step.  Sharding annotations are no-ops on
+one device and are dropped.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from ..configs.registry import ArchConfig
+from .kernel_mode import mode
+from .layers import apply_rope, dense_init, rmsnorm, rmsnorm_init
+
+NEG_INF = -2.3819763e38
+
+
+def _flash(q, k, v, q_offset: int = 0):
+    from ..kernels import ops
+    return ops.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+
+
+def init_attention(gen: torch.Generator, cfg: ArchConfig,
+                   dtype: torch.dtype) -> Dict:
+    hd = cfg.hd
+    p = {
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * hd, dtype),
+        "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype),
+        "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype),
+        "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, gen.device)
+        p["k_norm"] = rmsnorm_init(hd, gen.device)
+    return p
+
+
+def _split_heads(x, n, hd):
+    return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def _qkv(p, cfg: ArchConfig, x, positions):
+    if cfg.mrope:
+        raise NotImplementedError("M-RoPE is not ported yet")
+    hd = cfg.hd
+    q = _split_heads(x @ p["wq"], cfg.n_heads, hd)
+    k = _split_heads(x @ p["wk"], cfg.n_kv_heads, hd)
+    v = _split_heads(x @ p["wv"], cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    return apply_rope(q, positions), apply_rope(k, positions), v
+
+
+def _sdpa(q, k, v, mask, n_rep: int):
+    """q: (b, sq, h, d); k/v: (b, skv, hkv, d); mask: (b, sq, skv) or None."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    qf = q.float() / math.sqrt(d)
+    q_g = qf.reshape(b, sq, hkv, n_rep, d)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", q_g, k.float())
+    if mask is not None:
+        logits = torch.where(mask[:, None, None, :, :], logits,
+                             torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v.float())
+    return out.reshape(b, sq, h, d).to(v.dtype)
+
+
+def causal_mask(sq: int, window: int = 0, device=None) -> torch.Tensor:
+    i = torch.arange(sq, device=device)[:, None]
+    j = torch.arange(sq, device=device)[None, :]
+    m = j <= i
+    if window:
+        m &= (i - j) < window
+    return m[None]   # (1, sq, sq)
+
+
+def attention(p, cfg: ArchConfig, x, positions, *, window: int = 0,
+              return_kv: bool = False):
+    """Prefill self-attention (causal, optional sliding window)."""
+    q, k, v = _qkv(p, cfg, x, positions)
+    sq = x.shape[1]
+    md = mode()
+    if md.enabled and window == 0 and sq >= md.min_attn_q:
+        out = _flash(q, k, v)
+    else:
+        mask = causal_mask(sq, window, x.device).expand(x.shape[0], sq, sq)
+        out = _sdpa(q, k, v, mask, cfg.n_heads // cfg.n_kv_heads)
+    out = out.reshape(x.shape[0], sq, -1) @ p["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# decode with KV cache
+# ---------------------------------------------------------------------------
+
+def decode_attention(p, cfg: ArchConfig, x, k_cache, v_cache, cache_len: int,
+                     *, window: int = 0
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode: x (b, 1, d); k/v_cache (b, S, hkv, hd) hold
+    ``cache_len`` valid entries; the new entry is written at
+    ``cache_len``.  Returns (out, k_cache, v_cache)."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), cache_len, dtype=torch.long,
+                           device=x.device)
+    q, k_new, v_new = _qkv(p, cfg, x, positions)
+    k_cache[:, cache_len] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, cache_len] = v_new[:, 0].to(v_cache.dtype)
+    S = k_cache.shape[1]
+    j = torch.arange(S, device=x.device)[None, None, :]
+    mask = j <= cache_len
+    if window:
+        mask &= j > (cache_len - window)
+    out = _sdpa(q, k_cache, v_cache, mask.expand(b, 1, S),
+                cfg.n_heads // cfg.n_kv_heads)
+    out = out.reshape(b, 1, -1) @ p["wo"]
+    return out, k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# serving fast path: chunked prefill + ragged paged decode
+# ---------------------------------------------------------------------------
+
+def chunk_attention(p, cfg: ArchConfig, x, k_cache, v_cache, offset: int,
+                    kv_len: int, *, window: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Chunked-prefill self-attention: x (b, c, d) holds rows
+    ``[offset, offset+c)`` of the sequence; the chunk's k/v are written
+    into the cache at ``offset`` and attention runs causally over
+    ``cache[:, :kv_len]``, the page-aligned prefix covering
+    ``offset + c``.  The kernel route passes ``offset`` as the flash
+    kernel's runtime ``q_offset`` and reads the cache prefix in place.
+    Returns (out, k_cache, v_cache)."""
+    b, c, _ = x.shape
+    positions = (offset + torch.arange(c, device=x.device))[None, :].expand(b, c)
+    q, k_new, v_new = _qkv(p, cfg, x, positions)
+    k_cache[:, offset:offset + c] = k_new.to(k_cache.dtype)
+    v_cache[:, offset:offset + c] = v_new.to(v_cache.dtype)
+    kp = k_cache[:, :kv_len]
+    vp = v_cache[:, :kv_len]
+    md = mode()
+    if md.enabled and window == 0 and c >= md.min_attn_q:
+        out = _flash(q, kp, vp, q_offset=offset)
+    else:
+        rows = offset + torch.arange(c, device=x.device)[:, None]
+        cols = torch.arange(kv_len, device=x.device)[None, :]
+        m = rows >= cols
+        if window:
+            m &= (rows - cols) < window
+        out = _sdpa(q, kp, vp, m[None].expand(b, c, kv_len),
+                    cfg.n_heads // cfg.n_kv_heads)
+    out = out.reshape(b, c, -1) @ p["wo"]
+    return out, k_cache, v_cache
+
+
+def paged_decode_attention(p, cfg: ArchConfig, x, k_cache, v_cache, lengths,
+                           kv_len: int, *, window: int = 0
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Ragged one-token decode over a page-aligned KV prefix.
+
+    x: (b, 1, d); lengths: (b,) per-slot valid lengths on the device —
+    each slot's token is written at its own ``lengths[i]`` (clamped to
+    the cache as the reference's ``dynamic_update_slice`` clamps);
+    ``kv_len``: attention reads only ``cache[:, :kv_len]``.  Masked
+    entries contribute exact zeros, so the page bound changes no bit.
+    Returns (out, k_cache, v_cache)."""
+    b = x.shape[0]
+    positions = lengths[:, None].long()
+    q, k_new, v_new = _qkv(p, cfg, x, positions)
+    rows = torch.arange(b, device=x.device)
+    at = lengths.long().clamp(0, k_cache.shape[1] - 1)
+    k_cache[rows, at] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[rows, at] = v_new[:, 0].to(v_cache.dtype)
+    kp = k_cache[:, :kv_len]
+    vp = v_cache[:, :kv_len]
+    j = torch.arange(kv_len, device=x.device)[None, None, :]
+    mask = j <= lengths[:, None, None]
+    if window:
+        mask &= j > (lengths[:, None, None] - window)
+    out = _sdpa(q, kp, vp, mask.expand(b, 1, kv_len),
+                cfg.n_heads // cfg.n_kv_heads)
+    out = out.reshape(b, 1, -1) @ p["wo"]
+    return out, k_cache, v_cache

@@ -1,0 +1,298 @@
+"""Model assembly, serving half: init, KV cache, chunked prefill and
+ragged decode steps.
+
+Ports ``src/repro/model/transformer.py`` (``layer_specs``,
+``pattern_period``, ``init_params``, ``init_cache``, the cache-slot
+helpers, ``_stack_walk``, ``chunk_step``, ``serve_decode_step``,
+``prefill`` and ``decode_step``).  Differences from the reference:
+
+* Parameters and caches are per layer: ``params["layers"][l]`` and
+  ``cache[l]``.  The reference stacks the layers of each pattern slot
+  for ``lax.scan``; here a Python loop walks the layers, and
+  :mod:`repro_torch.bridge` maps stacked slot ``s``, repeat ``r`` to
+  layer ``r·period + s``.
+* Cache updates are in place; the step functions return the cache they
+  were given, so callers read as in the reference.
+* Sharding annotations and ``gather_params_for_compute`` are no-ops on
+  one device and are dropped.
+
+Only attention mixers with SwiGLU MLPs are ported: any other layer kind
+raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from ..configs.registry import ArchConfig
+from . import attention as ATT
+from . import mlp as MLP
+from .layers import (device_of, dtype_of, embed, embed_init, make_generator,
+                     rmsnorm, rmsnorm_init, unembed)
+
+Cache = List[Dict[str, torch.Tensor]]
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    mixer: str          # 'attn' | 'mamba' | 'enc_attn'
+    window: int         # sliding window (0 = full)
+    ffn: str            # 'mlp' | 'moe' | 'none'
+    cross: bool = False
+
+
+def layer_specs(cfg: ArchConfig, role: str = "decoder") -> List[LayerSpec]:
+    n = cfg.enc_layers if role == "encoder" else cfg.n_layers
+    specs = []
+    for i in range(n):
+        if role == "encoder":
+            specs.append(LayerSpec("enc_attn", 0, "mlp"))
+            continue
+        if cfg.family == "ssm":
+            specs.append(LayerSpec("mamba", 0, "none"))
+            continue
+        mixer = "attn" if cfg.is_attn_layer(i) else "mamba"
+        window = 0
+        if cfg.sliding_window and not cfg.is_global_attn_layer(i):
+            window = cfg.sliding_window
+        ffn = "moe" if cfg.is_moe_layer(i) else "mlp"
+        specs.append(LayerSpec(mixer, window, ffn, cross=cfg.cross_attention))
+    return specs
+
+
+def pattern_period(cfg: ArchConfig, role: str = "decoder") -> int:
+    if role == "encoder" or cfg.family == "ssm":
+        return 1
+    p = 1
+    if cfg.attn_every:
+        p = cfg.attn_every
+    if cfg.n_experts:
+        p = _lcm(p, cfg.moe_every)
+    if cfg.local_global_ratio:
+        p = _lcm(p, cfg.local_global_ratio + 1)
+    return p
+
+
+def _lcm(a, b):
+    return a * b // math.gcd(a, b)
+
+
+def check_supported(cfg: ArchConfig) -> List[LayerSpec]:
+    """The decoder's layer specs, or ``NotImplementedError`` for a layer
+    kind the port does not have yet."""
+    if cfg.enc_layers or cfg.frontend_stub or cfg.mrope:
+        raise NotImplementedError(
+            f"{cfg.name}: encoders, frontends and M-RoPE are not ported yet")
+    specs = layer_specs(cfg, "decoder")
+    for spec in specs:
+        if spec.mixer != "attn" or spec.ffn != "mlp" or spec.cross:
+            raise NotImplementedError(
+                f"{cfg.name}: layer kind {spec} is not ported yet "
+                "(only attention mixers with SwiGLU MLPs)")
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_layer(gen: torch.Generator, cfg: ArchConfig,
+                dtype: torch.dtype) -> Dict:
+    return {
+        "ln1": rmsnorm_init(cfg.d_model, gen.device),
+        "mixer": ATT.init_attention(gen, cfg, dtype),
+        "ln2": rmsnorm_init(cfg.d_model, gen.device),
+        "ffn": MLP.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
+    }
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
+                generator: Optional[torch.Generator] = None) -> Dict:
+    """Random weights drawn on ``device`` from ``generator`` (or a new
+    one seeded with ``seed``).  Matmul weights are ``(in, out)``."""
+    specs = check_supported(cfg)
+    dev = device_of(device)
+    gen = generator if generator is not None else make_generator(seed, dev)
+    dtype = dtype_of(cfg.dtype)
+    p: Dict[str, Any] = {
+        "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype),
+        "final_ln": rmsnorm_init(cfg.d_model, dev),
+        "layers": [_init_layer(gen, cfg, dtype) for _ in specs],
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = embed_init(gen, cfg.vocab, cfg.d_model, dtype)
+    return p
+
+
+def _head(params) -> torch.Tensor:
+    return params.get("lm_head", params["embed"])
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode (alternating engine)
+# ---------------------------------------------------------------------------
+
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, Cache]:
+    """Full forward that also materializes the decode cache.
+    Returns (last-position logits (b, vocab), per-layer cache of
+    ``seq`` rows)."""
+    specs = check_supported(cfg)
+    x = embed(tokens, params["embed"])
+    b, seq = tokens.shape
+    positions = torch.arange(seq, device=x.device)[None].expand(b, seq)
+    cache: Cache = []
+    for p, spec in zip(params["layers"], specs):
+        h, (k, v) = ATT.attention(p["mixer"], cfg,
+                                  rmsnorm(x, p["ln1"], cfg.norm_eps),
+                                  positions, window=spec.window,
+                                  return_kv=True)
+        x = x + h
+        x = x + MLP.mlp(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+        cache.append({"k": k, "v": v})
+    x = rmsnorm(x[:, -1:, :], params["final_ln"], cfg.norm_eps)
+    return unembed(x[:, 0, :], _head(params)), cache
+
+
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: Cache,
+                cache_len: int) -> Tuple[torch.Tensor, Cache]:
+    """One decode step at the shared position ``cache_len``.
+    token: (b, 1); returns (logits (b, vocab), cache)."""
+    def layer(p, spec, x, lc):
+        h, k, v = ATT.decode_attention(p["mixer"], cfg,
+                                       rmsnorm(x, p["ln1"], cfg.norm_eps),
+                                       lc["k"], lc["v"], cache_len,
+                                       window=spec.window)
+        x = x + h
+        x = x + MLP.mlp(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+        return x, {"k": k, "v": v}
+
+    x, cache = _stack_walk(params, cfg, embed(token, params["embed"]),
+                           cache, layer)
+    x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    return unembed(x[:, 0, :], _head(params)), cache
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device="cuda") -> Cache:
+    """Per-layer ``{"k", "v"}`` of shape (batch, max_len, hkv, hd)."""
+    specs = check_supported(cfg)
+    dev = device_of(device)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    dtype = dtype_of(cfg.dtype)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            for _ in specs]
+
+
+def cache_slot_view(cache: Cache, i: int) -> Cache:
+    """Batch-size-1 view of batch slot ``i``: writes through the view
+    land in ``cache``."""
+    return [{name: t[i:i + 1] for name, t in lc.items()} for lc in cache]
+
+
+def cache_slot_write(cache: Cache, sub: Cache, i: int) -> Cache:
+    """Write a b=1 sub-cache back at slot ``i``.  A sub-cache that is
+    :func:`cache_slot_view` of ``cache`` already lives there and is not
+    copied."""
+    for lc, sc in zip(cache, sub):
+        for name, t in lc.items():
+            dst = t[i:i + 1]
+            src = sc[name]
+            if src.data_ptr() != dst.data_ptr():
+                dst.copy_(src)
+    return cache
+
+
+def zero_cache_slot(cache: Cache, i: int) -> Cache:
+    """Zero every cache row of batch slot ``i`` — reused-slot hygiene:
+    a new request admitted into a slot must never see KV rows left by a
+    longer previous occupant."""
+    for lc in cache:
+        for t in lc.values():
+            t[i].zero_()
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# serving fast path: chunked prefill + ragged paged decode
+# ---------------------------------------------------------------------------
+
+def _stack_walk(params, cfg: ArchConfig, x, cache: Cache, layer_fn):
+    """Walk the layers for the serving step functions:
+    ``layer_fn(p, spec, x, layer_cache) -> (x, new_layer_cache)``."""
+    specs = check_supported(cfg)
+    new_cache: Cache = []
+    for p, spec, lc in zip(params["layers"], specs, cache):
+        x, nc = layer_fn(p, spec, x, lc)
+        new_cache.append(nc)
+    return x, new_cache
+
+
+def _chunk_layer(p, spec: LayerSpec, cfg: ArchConfig, x, cache, offset: int,
+                 kv_len: int):
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    h, k, v = ATT.chunk_attention(p["mixer"], cfg, h, cache["k"], cache["v"],
+                                  offset, kv_len, window=spec.window)
+    x = x + h
+    x = x + MLP.mlp(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    return x, {"k": k, "v": v}
+
+
+def chunk_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache: Cache,
+               offset: int, kv_len: int) -> Tuple[torch.Tensor, Cache]:
+    """Prefill one chunk of a sequence into an existing cache.
+
+    tokens: (b, c) — rows ``[offset, offset+c)`` of the prompt; cache
+    (typically a b=1 :func:`cache_slot_view`) with all rows < offset
+    already prefilled.  Returns (logits (b, c, vocab) for every chunk
+    position, cache)."""
+    x = embed(tokens, params["embed"])
+    x, cache = _stack_walk(
+        params, cfg, x, cache,
+        lambda p, spec, xc, lc: _chunk_layer(p, spec, cfg, xc, lc, offset,
+                                             kv_len))
+    x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    return unembed(x, _head(params)), cache
+
+
+def _serve_decode_layer(p, spec: LayerSpec, cfg: ArchConfig, x, cache,
+                        lengths, kv_len: int):
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    # inactive slots (mid-prefill / retired) write at their own
+    # lengths[i] — a row the next prefill chunk or admission zeroing
+    # overwrites, so no select is needed on the KV pages
+    h, k, v = ATT.paged_decode_attention(p["mixer"], cfg, h, cache["k"],
+                                         cache["v"], lengths, kv_len,
+                                         window=spec.window)
+    x = x + h
+    x = x + MLP.mlp(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    return x, {"k": k, "v": v}
+
+
+def serve_decode_step(params, cfg: ArchConfig, token: torch.Tensor,
+                      cache: Cache, lengths: torch.Tensor,
+                      active: torch.Tensor, kv_len: int
+                      ) -> Tuple[torch.Tensor, Cache]:
+    """Ragged continuous-batching decode step.
+
+    token: (b, 1); lengths: (b,) per-slot valid cache lengths (each slot
+    attends to and extends its own prefix); active: (b,) bool — slots
+    currently decoding (the reference selects recurrent state with it;
+    attention caches need no select); kv_len: page-aligned bound
+    ≥ max(lengths)+1.  Returns (logits (b, vocab), cache)."""
+    del active
+    x = embed(token, params["embed"])
+    x, cache = _stack_walk(
+        params, cfg, x, cache,
+        lambda p, spec, xc, lc: _serve_decode_layer(p, spec, cfg, xc, lc,
+                                                    lengths, kv_len))
+    x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    return unembed(x[:, 0, :], _head(params)), cache

@@ -1,0 +1,108 @@
+"""Kernel plans fitted to Hopper: block geometry for the port's kernels.
+
+Ports the plan part of ``src/repro/core/akg.py`` (``KernelPlan``,
+``plan_matmul``, ``plan_attention``).  The port does not carry the
+PolyTOPS scheduler yet, so loop order and vector iterator are the ones
+the reference's scheduler derives for these two SCoPs (tensor-style
+scheduling puts the contiguous iterator innermost):
+
+* matmul ``C[i,j] += A[i,kk]·B[kk,j]`` → order ``(i, kk, j)``, vector ``j``;
+* attention scores ``S[q,kk] += Q[q,d]·K[kk,d]`` → order ``(q, kk, d)``,
+  vector ``d``.
+
+Tiles start from the reference's initial rule (``akg._fit_tiles``: the
+vector iterator up to 512, the others up to 128) and keep its attention
+clamp (q and kk ≤ 128, ``akg.py:315-318``).  They are then fitted to the
+card and to the kernels in ``csrc/`` instead of to the TPU's VMEM and
+lanes (``akg.py:38-40``):
+
+* every edge is a multiple of 16 (bf16 tensor-core fragments are 16 deep);
+* matmul: ``i`` ∈ {32, 64, 128} and ``j`` ∈ {64, 128} (the kernel's 2×4
+  warp grid of 16-multiple warp tiles; the f32 accumulator tile stays
+  ≤ 64 KB of registers), ``kk`` ≤ 128; two stages of A and B tiles fit
+  the 227 KB of shared memory a block may use;
+* attention: ``d`` whole (a thread's row of the output spans the head),
+  ``q`` and ``kk`` powers of two in [16, 128] (the kernel's score tile is
+  a register array sized at compile time); Q, K and V tiles fit shared
+  memory.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
+
+SMEM_BYTES = 227 * 1024        # shared memory one block may use on H100
+ACC_BYTES = 64 * 1024          # f32 accumulator tile a block keeps in registers
+EDGE = 16                      # bf16 tensor-core fragment depth
+PAD = 8                        # shared-memory row padding (elements) in csrc/
+MATMUL_I = (32, 64, 128)
+MATMUL_J = (64, 128)
+POW2 = (16, 32, 64, 128)
+
+
+@dataclass(frozen=True)
+class KernelPlan:
+    """Loop-nest plan for a kernel (same fields as the reference's)."""
+    loop_order: Tuple[str, ...]       # outer → inner iterator names
+    vector_iter: Optional[str]        # contiguous innermost iterator
+    tile: Dict[str, int] = field(hash=False)
+    bands: Tuple[int, ...]            # band id per scheduled dim
+    schedule_str: str = ""            # human-readable schedule (debug)
+    degraded: bool = False
+    fallback_level: int = 0
+    degrade_reasons: Tuple[str, ...] = ()
+
+
+def _initial_tile(it: str, d: int, vector_iter: str) -> int:
+    """The reference's starting tile (``akg._fit_tiles``)."""
+    if it == vector_iter:
+        t = min(d, 512 if d % 512 == 0 else 128 * max(d // 128, 1))
+        return max(min(t, d), min(d, 128))
+    return min(d, 128)
+
+
+def _snap(t: int, allowed: Tuple[int, ...]) -> int:
+    """Largest allowed size ≤ t, or the smallest allowed one."""
+    fits = [a for a in allowed if a <= t]
+    return max(fits) if fits else min(allowed)
+
+
+def matmul_smem_bytes(tile: Dict[str, int], bytes_per_elem: int = 2,
+                      stages: int = 2) -> int:
+    i, j, kk = tile["i"], tile["j"], tile["kk"]
+    return stages * (i * (kk + PAD) + kk * (j + PAD)) * bytes_per_elem
+
+
+def attention_smem_bytes(tile: Dict[str, int],
+                         bytes_per_elem: int = 2) -> int:
+    q, kk, d = tile["q"], tile["kk"], tile["d"]
+    return (q + 2 * kk) * (d + PAD) * bytes_per_elem
+
+
+@functools.lru_cache(maxsize=64)
+def plan_matmul(m: int, n: int, k: int) -> KernelPlan:
+    order = ("i", "kk", "j")
+    dims = {"i": m, "j": n, "kk": k}
+    tile = {it: _initial_tile(it, dims[it], "j") for it in order}
+    tile["i"] = _snap(tile["i"], MATMUL_I)
+    tile["j"] = _snap(tile["j"], MATMUL_J)
+    tile["kk"] = max(EDGE, min(128, tile["kk"]) // EDGE * EDGE)
+    while matmul_smem_bytes(tile) > SMEM_BYTES and tile["kk"] > EDGE:
+        tile["kk"] = max(EDGE, tile["kk"] // 2 // EDGE * EDGE)
+    return KernelPlan(order, "j", tile, (0, 0, 0),
+                      "S0: [i, kk, j]   # C[i,j] = C[i,j] + A[i,kk] * B[kk,j]")
+
+
+@functools.lru_cache(maxsize=64)
+def plan_attention(seq_q: int, seq_k: int, head_dim: int) -> KernelPlan:
+    order = ("q", "kk", "d")
+    dims = {"q": seq_q, "kk": seq_k, "d": head_dim}
+    tile = {it: _initial_tile(it, dims[it], "d") for it in order}
+    tile["d"] = head_dim                      # the head stays whole
+    tile["q"] = _snap(min(tile["q"], 128), POW2)
+    tile["kk"] = _snap(min(tile["kk"], 128), POW2)
+    while attention_smem_bytes(tile) > SMEM_BYTES and tile["kk"] > EDGE:
+        tile["kk"] //= 2
+    return KernelPlan(order, "d", tile, (0, 0, 0),
+                      "S0: [q, kk, d]   # S[q,kk] = S[q,kk] + Qm[q,d] * Km[kk,d]")

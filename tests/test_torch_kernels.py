@@ -1,0 +1,148 @@
+"""The port's kernel modules on the CPU: plain versions against the JAX
+package's Pallas kernels (interpret mode), dispatch, and plans.
+
+The CUDA kernels themselves run only on the card (``chip_smoke.py``
+holds them against these plain versions there).  Here the plain
+versions are held to the Pallas kernels at the shapes of
+``python -m repro.kernels.bench --smoke`` and its f32 tolerance of 1e-4
+(``bench.py:102,120``), including the chunked-prefill ``q_offset`` case
+and GQA; the wrappers must route CPU tensors to the plain version and
+refuse to launch a kernel on them.
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import akg
+from repro.kernels import ops as jops
+from repro_torch import plan as tplan
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import matmul_polytops as mm
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def rnd(seed, shape, scale=1.0):
+    return (np.random.RandomState(seed).standard_normal(shape)
+            * scale).astype(np.float32)
+
+
+def test_matmul_plain_matches_pallas():
+    a, b = rnd(0, (128, 128)), rnd(1, (128, 128))
+    want = jops.matmul(jnp.asarray(a), jnp.asarray(b), interpret=True)
+    got = ops.matmul(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_matmul_plain_ragged_and_bf16():
+    a, b = rnd(2, (37, 70)), rnd(3, (70, 50))
+    got = ref.matmul_ref(torch.from_numpy(a).bfloat16(),
+                         torch.from_numpy(b).bfloat16())
+    assert got.dtype == torch.bfloat16 and got.shape == (37, 50)
+    want = (torch.from_numpy(a).bfloat16().float()
+            @ torch.from_numpy(b).bfloat16().float())
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(),
+                               rtol=1e-2, atol=1e-2)
+
+
+def _flash_inputs(b, sq, sk, h, hkv, d, seed):
+    return (rnd(seed, (b, sq, h, d), 0.3), rnd(seed + 1, (b, sk, hkv, d), 0.3),
+            rnd(seed + 2, (b, sk, hkv, d)))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,q_offset", [
+    (1, 128, 128, 2, 2, 64, 0),      # bench.py --smoke flash case
+    (2, 64, 64, 4, 2, 32, 0),        # GQA
+    (1, 32, 128, 2, 2, 64, 64),      # prefill chunk at offset 64, page-bound kv
+    (2, 16, 48, 4, 2, 16, 16),       # smoke serving chunk, GQA, offset
+])
+def test_flash_plain_matches_pallas(b, sq, sk, h, hkv, d, q_offset):
+    q, k, v = _flash_inputs(b, sq, sk, h, hkv, d, seed=4)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                causal=True, q_offset=jnp.int32(q_offset),
+                                interpret=True)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=True,
+                              q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_attention_ref_noncausal_and_layout():
+    q, k, v = _flash_inputs(1, 64, 64, 2, 2, 32, seed=7)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                causal=False, interpret=True)
+    got = ref.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), causal=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """No fallback: the kernel wrappers launch on CUDA or raise, and
+    nothing is built or launched for a CPU tensor."""
+    a = torch.zeros((16, 16), dtype=torch.bfloat16)
+    q = torch.zeros((1, 16, 2, 16), dtype=torch.bfloat16)
+    before = (mm.LAUNCHES, fa.LAUNCHES)
+    with pytest.raises(ValueError):
+        mm.matmul(a, a)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)
+    assert (mm.LAUNCHES, fa.LAUNCHES) == before
+    assert build._LIB is None
+
+
+def test_ops_dispatch_cpu_to_plain_versions():
+    a, b = torch.from_numpy(rnd(8, (8, 16))), torch.from_numpy(rnd(9, (16, 8)))
+    assert torch.equal(ops.matmul(a, b), ref.matmul_ref(a, b))
+    q, k, v = (torch.from_numpy(x) for x in _flash_inputs(1, 8, 16, 2, 1, 16, 10))
+    assert torch.equal(ops.flash_attention(q, k, v, q_offset=8),
+                       ref.flash_attention_ref(q, k, v, q_offset=8))
+    with pytest.raises(ValueError):
+        ops.matmul(a.to("meta"), b.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# plans
+# ---------------------------------------------------------------------------
+
+MATMUL_SHAPES = [(16, 128, 64), (16, 64, 128), (128, 128, 128),
+                 (256, 8192, 2048), (256, 2048, 8192), (200, 8192, 2048)]
+ATTN_SHAPES = [(16, 48, 16), (8, 32, 16), (128, 128, 64), (256, 4096, 64),
+               (256, 1088, 64), (256, 1024, 64)]
+
+
+@pytest.mark.parametrize("m,n,k", MATMUL_SHAPES)
+def test_plan_matmul_order_matches_reference_and_fits_hopper(m, n, k):
+    want, got = akg.plan_matmul(m, n, k), tplan.plan_matmul(m, n, k)
+    assert got.loop_order == want.loop_order
+    assert got.vector_iter == want.vector_iter
+    t = got.tile
+    assert all(v % tplan.EDGE == 0 for v in t.values())
+    assert t["i"] in tplan.MATMUL_I and t["j"] in tplan.MATMUL_J
+    assert t["kk"] <= 128
+    assert tplan.matmul_smem_bytes(t) <= tplan.SMEM_BYTES
+    assert t["i"] * t["j"] * 4 <= tplan.ACC_BYTES
+
+
+@pytest.mark.parametrize("sq,sk,d", ATTN_SHAPES)
+def test_plan_attention_order_matches_reference_and_fits_hopper(sq, sk, d):
+    want, got = akg.plan_attention(sq, sk, d), tplan.plan_attention(sq, sk, d)
+    assert got.loop_order == want.loop_order
+    assert got.vector_iter == want.vector_iter
+    t = got.tile
+    assert t["d"] == d
+    assert t["q"] in tplan.POW2 and t["kk"] in tplan.POW2
+    assert t["q"] <= 128 and t["kk"] <= 128
+    assert tplan.attention_smem_bytes(t) <= tplan.SMEM_BYTES
+
+
+def test_plan_full_width_tiles():
+    assert tplan.plan_matmul(256, 8192, 2048).tile == {"i": 128, "kk": 128,
+                                                       "j": 128}
+    assert tplan.plan_attention(256, 4096, 64).tile == {"q": 128, "kk": 128,
+                                                        "d": 64}

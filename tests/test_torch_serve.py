@@ -1,0 +1,223 @@
+"""The port's serving engines against the JAX reference engines.
+
+The cases of ``tests/test_serve.py`` — slot-reuse hygiene, FIFO
+admission with slot recycling, the ragged chunked-prefill interleave,
+kernel routing with thresholds lowered to 16 (``test_serve.py:157``),
+and continuous against alternating — run on both packages with the same
+f32 weights (carried across by ``repro_torch.bridge``), the same prompts
+(numpy, seeded) and the same page size.  Greedy tokens must be equal.
+
+The JAX engines here never enable the Pallas path, and each runs inside
+``pallas_mode.pallas_mode(...)`` so the process-wide mode is restored
+for whatever test runs next in this worker.
+"""
+from __future__ import annotations
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_arch as jax_get_arch
+from repro.launch import serve as jserve
+from repro.model import pallas_mode
+from repro.model import transformer as JT
+from repro_torch import bridge
+from repro_torch.configs.registry import get_arch
+from repro_torch.launch import serve as tserve
+from repro_torch.model import kernel_mode
+from repro_torch.plan import plan_attention
+
+torch.set_num_threads(1)
+
+JCFG = jax_get_arch("granite_3_2b").smoke().scaled(dtype="float32")
+TCFG = get_arch("granite_3_2b").smoke().scaled(dtype="float32")
+PAGE = 16
+
+
+@functools.lru_cache(maxsize=1)
+def weights():
+    jp = JT.init_params(jax.random.PRNGKey(0), JCFG)
+    return jp, bridge.params_from_numpy(jax.tree.map(np.asarray, jp), TCFG,
+                                        "cpu")
+
+
+def prompt(seed: int, plen: int) -> np.ndarray:
+    return np.random.RandomState(seed).randint(
+        2, JCFG.vocab, size=(1, plen)).astype(np.int32)
+
+
+def jax_continuous(prompts, gen, max_len, batch, **kw):
+    with pallas_mode.pallas_mode(enabled=False):
+        eng = jserve.ContinuousEngine(JCFG, weights()[0], batch, max_len,
+                                      max_new=gen, page=PAGE, **kw)
+        reqs = [jserve.Request(i, jnp.asarray(p)) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+    return [r.generated for r in reqs]
+
+
+def port_continuous(prompts, gen, max_len, batch, **kw):
+    eng = tserve.ContinuousEngine(TCFG, weights()[1], batch, max_len,
+                                  max_new=gen, page=PAGE, **kw)
+    reqs = [tserve.Request(i, p) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return eng, reqs
+
+
+def port_alternating(prompts, gen, max_len):
+    eng = tserve.ServeEngine(TCFG, weights()[1], len(prompts), max_len)
+    reqs = [tserve.Request(i, p) for i, p in enumerate(prompts)]
+    for i, r in enumerate(reqs):
+        eng.admit(r, slot=i)
+    for _ in range(gen - 1):
+        eng.step()
+    return [r.generated for r in reqs]
+
+
+def test_admit_slot_reuse_zeroes_stale_rows():
+    """``test_serve.py::test_admit_slot_reuse_zeroes_stale_rows`` on both
+    packages: request B reuses slot 0 after A decoded there; its rows
+    past the prompt must be zero, and its tokens equal the reference's."""
+    plen, j, k, max_len = 8, 4, 4, 32
+    ps = [prompt(1, plen), prompt(2, plen), prompt(3, plen)]
+
+    def scenario(mod, eng, to_prompt):
+        a, other = mod.Request(0, to_prompt(ps[0])), mod.Request(1, to_prompt(ps[1]))
+        eng.admit(a, slot=0)
+        eng.admit(other, slot=1)
+        for _ in range(j):
+            eng.step()
+        a.done = True
+        b = mod.Request(2, to_prompt(ps[2]))
+        eng.admit(b, slot=0)
+        return b
+
+    with pallas_mode.pallas_mode(enabled=False):
+        jeng = jserve.ServeEngine(JCFG, weights()[0], 2, max_len)
+        jb = scenario(jserve, jeng, jnp.asarray)
+        for _ in range(k):
+            jeng.step()
+    teng = tserve.ServeEngine(TCFG, weights()[1], 2, max_len)
+    tb = scenario(tserve, teng, lambda p: p)
+    for lc in teng.cache:
+        assert not lc["k"][0, plen:].any()
+        assert lc["k"][1, plen:plen + j].any()
+    for _ in range(k):
+        teng.step()
+    assert tb.generated == jb.generated
+
+
+def test_admission_ordering_and_slot_recycling():
+    gen, max_len = 6, 32
+    prompts = [prompt(1, 8), prompt(2, 8), prompt(3, 8), prompt(1, 8),
+               prompt(2, 8)]
+    eng, reqs = port_continuous(prompts, gen, max_len, batch=2, chunk=8)
+    assert all(r.done for r in reqs)
+    assert [len(r.generated) for r in reqs] == [gen] * 5
+    assert eng.state == [0, 0] and not eng.queue
+    assert reqs[0].generated == reqs[3].generated
+    assert reqs[1].generated == reqs[4].generated
+    assert reqs[0].generated != reqs[1].generated
+    assert [r.generated for r in reqs] == jax_continuous(
+        prompts, gen, max_len, batch=2, chunk=8)
+
+
+def test_ragged_prefill_interleave_determinism():
+    gen, max_len, chunk = 6, 48, 8
+    plens = [7, 19, 13]
+    prompts = [prompt(i + 10, pl) for i, pl in enumerate(plens)]
+    eng, reqs = port_continuous(prompts, gen, max_len, batch=2, chunk=chunk)
+    got = [r.generated for r in reqs]
+    assert got == jax_continuous(prompts, gen, max_len, batch=2, chunk=chunk)
+    for r, p in zip(got, prompts):
+        assert r == port_alternating([p], gen, max_len)[0]
+    eng.reset()
+    reqs2 = [tserve.Request(i, p) for i, p in enumerate(prompts)]
+    for r in reqs2:
+        eng.submit(r)
+    eng.run()
+    assert [r.generated for r in reqs2] == got
+
+
+def test_kernel_routing_parity():
+    """Kernel routes (plain versions on the CPU) with thresholds lowered
+    to 16 give the tokens of the plain torch path and of the reference;
+    the engine's kernel mode does not leak out of its ticks."""
+    gen, max_len, chunk = 5, 48, 16
+    prompts = [prompt(21, 32), prompt(22, 32)]
+    _, plain = port_continuous(prompts, gen, max_len, batch=2, chunk=chunk)
+    _, kern = port_continuous(prompts, gen, max_len, batch=2, chunk=chunk,
+                              use_kernels=True,
+                              kernel_opts=dict(min_attn_q=16,
+                                               min_matmul_rows=16))
+    assert kernel_mode.mode() == kernel_mode.KernelMode()
+    want = jax_continuous(prompts, gen, max_len, batch=2, chunk=chunk)
+    assert [r.generated for r in kern] == [r.generated for r in plain] == want
+
+
+def test_continuous_matches_alternating():
+    gen, max_len, plen, batch = 6, 48, 16, 3
+    prompts = [prompt(30 + i, plen) for i in range(batch)]
+    _, cont = port_continuous(prompts, gen, max_len, batch=batch, chunk=8)
+    base = port_alternating(prompts, gen, max_len)
+    assert [r.generated for r in cont] == base
+    with pallas_mode.pallas_mode(enabled=False):
+        jeng = jserve.ServeEngine(JCFG, weights()[0], batch, max_len)
+        jreqs = [jserve.Request(i, jnp.asarray(p)) for i, p in enumerate(prompts)]
+        for i, r in enumerate(jreqs):
+            jeng.admit(r, slot=i)
+        for _ in range(gen - 1):
+            jeng.step()
+    assert base == [r.generated for r in jreqs]
+
+
+def test_sync_mode_reads_tokens_per_tick():
+    gen, max_len = 4, 32
+    prompts = [prompt(40, 9), prompt(41, 5)]
+    _, lazy = port_continuous(prompts, gen, max_len, batch=2, chunk=8)
+    _, eager = port_continuous(prompts, gen, max_len, batch=2, chunk=8,
+                               sync=True)
+    assert [r.generated for r in eager] == [r.generated for r in lazy]
+    assert all(len(r.token_times) == gen for r in eager)
+
+
+def test_eos_stops_a_request_early():
+    """``eos`` makes the engine read tokens per tick and retire a request
+    at its first eos token, as the reference engine does."""
+    gen, max_len = 6, 32
+    prompts = [prompt(50, 9), prompt(51, 12)]
+    _, full = port_continuous(prompts, gen, max_len, batch=2, chunk=8)
+    eos = full[0].generated[2]
+    _, cut = port_continuous(prompts, gen, max_len, batch=2, chunk=8, eos=eos)
+    got = [r.generated for r in cut]
+    assert got[0] == full[0].generated[:full[0].generated.index(eos) + 1]
+    assert got == jax_continuous(prompts, gen, max_len, batch=2, chunk=8,
+                                 eos=eos)
+
+
+def test_submit_validation():
+    eng = tserve.ContinuousEngine(TCFG, weights()[1], 1, 16, max_new=4)
+    with pytest.raises(ValueError, match="exceeds max_len"):
+        eng.submit(tserve.Request(0, prompt(1, 16)))
+    with pytest.raises(ValueError, match="exceeds token buffer"):
+        eng.submit(tserve.Request(1, prompt(1, 4), max_new=12))
+
+
+def test_page_size_from_plan():
+    eng = tserve.ContinuousEngine(TCFG, weights()[1], 1, 64, chunk=16)
+    assert eng.page == plan_attention(16, 64, TCFG.hd).tile["kk"]
+    assert tserve.ContinuousEngine(TCFG, weights()[1], 1, 64, page=8).page == 8
+
+
+def test_serve_main_runs_on_cpu(capsys):
+    tserve.main(["--smoke", "--device", "cpu", "--kernels", "--batch", "2",
+                 "--prompt-len", "20", "--gen", "3", "--chunk", "16"])
+    out = capsys.readouterr().out
+    assert "2 seqs, 6 tokens" in out and "on cpu" in out
