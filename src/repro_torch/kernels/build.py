@@ -17,7 +17,7 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("matmul.cu", "flash_attention.cu")
+SOURCES = ("matmul.cu", "flash_attention.cu", "scan_gate.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 
@@ -32,6 +32,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_flash_attention_bf16.argtypes = (
         [p, p, p, p] + [i] * 10 + [ll] * 12 + [p])
     lib.repro_flash_attention_bf16.restype = i
+    lib.repro_scan_gate.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.repro_scan_gate.restype = i
+    lib.repro_selective_scan.argtypes = [p] * 4 + [i] * 6 + [p]
+    lib.repro_selective_scan.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -3,16 +3,20 @@ Hopper kernel, CPU tensors to its plain version.  Nothing else happens
 here — no fallback from one to the other.
 
 Ports ``src/repro/kernels/ops.py`` and keeps its layouts: q is
-(b, s, h, d), k/v are (b, s, hkv, d), GQA has rep = h // hkv.  The Mamba
-kernels (``scan_gate``, ``selective_scan``) come with the Mamba slice.
+(b, s, h, d), k/v are (b, s, hkv, d), GQA has rep = h // hkv; the scans
+take a_bar/b_bar (b, s, di, st), c (b, s, st) and x/z (b, s, di).
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
 from . import flash_attention as _fa
+from . import mamba_scan as _ms
 from . import matmul_polytops as _mm
 from . import ref
+from . import scan_gate as _sg
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -35,3 +39,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _on_cuda(q):
         return _fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def selective_scan(a_bar: torch.Tensor, b_bar: torch.Tensor,
+                   c: torch.Tensor) -> torch.Tensor:
+    if _on_cuda(a_bar):
+        return _ms.selective_scan(a_bar, b_bar, c)
+    return ref.selective_scan_ref(a_bar, b_bar, c)
+
+
+def scan_gate(a_bar: torch.Tensor, b_bar: torch.Tensor, c: torch.Tensor,
+              x_skip: torch.Tensor, d_skip: torch.Tensor, z: torch.Tensor,
+              h0: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused selective scan + skip + SiLU gate with state carry.
+    Returns (o (b, s, di) in x_skip's dtype, h_last (b, di, st) f32)."""
+    if _on_cuda(a_bar):
+        return _sg.scan_gate(a_bar, b_bar, c, x_skip, d_skip, z, h0=h0)
+    return ref.scan_gate_ref(a_bar, b_bar, c, x_skip, d_skip, z, h0=h0)

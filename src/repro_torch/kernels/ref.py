@@ -1,10 +1,19 @@
 """Plain PyTorch versions of the kernels (allclose targets).
 
-Ports ``src/repro/kernels/ref.py`` for the two kernels of the serving
-path.  ``kernels/ops.py`` runs these whenever its tensors lie on the CPU;
-``chip_smoke.py`` holds each CUDA kernel against them on the card.
+Ports ``src/repro/kernels/ref.py``: matmul, flash attention, the
+selective scan and the fused scan + skip + gate.  ``kernels/ops.py``
+runs these whenever its tensors lie on the CPU; ``chip_smoke.py`` holds
+each CUDA kernel against them on the card.
+
+The reference's scan oracles use an associative scan; here the
+recurrence is a sequential loop over time in f32, as the kernels run it.
+A sequential loop does the same f32 operations for a sequence whether it
+is processed whole or in chunks carried through ``h0``, so chunking
+changes no bit.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -53,3 +62,43 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = v.transpose(1, 2).reshape(b * h, -1, d)
     out = attention_ref(qf, kf, vf, causal=causal, q_offset=q_offset)
     return out.reshape(b, h, sq, d).transpose(1, 2)
+
+
+def ssm_scan(a: torch.Tensor, b: torch.Tensor,
+             h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h_t = a_t ⊙ h_{t-1} + b_t along axis 1 in f32, from ``h0`` (zeros
+    when None).  a, b: (batch, seq, d, n); h0: (batch, d, n).  Returns
+    every h_t: (batch, seq, d, n) f32."""
+    a32, b32 = a.float(), b.float()
+    h = (torch.zeros_like(a32[:, 0]) if h0 is None else h0.float())
+    hs = torch.empty_like(a32)
+    for t in range(a32.shape[1]):
+        h = a32[:, t] * h + b32[:, t]
+        hs[:, t] = h
+    return hs
+
+
+def contract_state(h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """y[b, s, d] = Σ_n h[b, s, d, n] · c[b, s, n] in f32."""
+    return (h * c.float()[:, :, None, :]).sum(-1)
+
+
+def selective_scan_ref(a_bar: torch.Tensor, b_bar: torch.Tensor,
+                       c: torch.Tensor) -> torch.Tensor:
+    """The Mamba recurrence from a zero state; y in ``a_bar``'s dtype
+    (``src/repro/kernels/mamba_scan.py:73``)."""
+    return contract_state(ssm_scan(a_bar, b_bar), c).to(a_bar.dtype)
+
+
+def scan_gate_ref(a_bar: torch.Tensor, b_bar: torch.Tensor, c: torch.Tensor,
+                  x_skip: torch.Tensor, d_skip: torch.Tensor, z: torch.Tensor,
+                  h0: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused scan + skip + gate: h_t = a⊙h+b from ``h0``, then
+    o_t = (h_t·c_t + x_t⊙d_skip) ⊙ silu(z_t), all in f32.  Returns
+    (o in ``x_skip``'s dtype, h_last f32)."""
+    h = ssm_scan(a_bar, b_bar, h0)
+    y = contract_state(h, c) + x_skip.float() * d_skip.float()
+    z32 = z.float()
+    o = y * (z32 * torch.sigmoid(z32))
+    return o.to(x_skip.dtype), h[:, -1]

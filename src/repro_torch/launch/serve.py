@@ -1,6 +1,7 @@
 """Batched serving launcher: continuous batching over the planned kernels.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        [--arch granite_3_2b|falcon_mamba_7b|...] \
         [--batch 4 --prompt-len 16 --gen 12 --chunk 16] [--kernels] \
         [--smoke] [--device cuda|cpu]
 
@@ -40,7 +41,7 @@ from ..configs.registry import get_arch
 from ..model import transformer as T
 from ..model.kernel_mode import kernel_mode
 from ..model.layers import device_of, make_generator
-from ..plan import plan_attention, plan_matmul
+from ..plan import plan_attention, plan_matmul, plan_scan_gate
 
 
 @dataclass
@@ -60,8 +61,9 @@ def _tokens(x, device: torch.device) -> torch.Tensor:
 
 
 def _merge_slot(cache: T.Cache, pre: T.Cache, slot: int) -> T.Cache:
-    """Write a b=1 prefill cache (``pre``, ``plen`` rows) into batch slot
-    ``slot`` of ``cache``."""
+    """Write a b=1 prefill cache into batch slot ``slot`` of ``cache``:
+    an attention layer's ``plen`` KV rows, a Mamba layer's conv tail and
+    SSM state."""
     for lc, pc in zip(cache, pre):
         for name, t in lc.items():
             src = pc[name]
@@ -371,6 +373,9 @@ def warm_kernel_plans(cfg, max_len: int, chunk: int = 16) -> None:
     plans = [plan_matmul(cfg.d_model, cfg.d_ff, cfg.d_model),
              plan_attention(max_len, max_len, cfg.hd),
              plan_attention(max(chunk, 8), max_len, cfg.hd)]
+    if cfg.d_inner and cfg.ssm_state:
+        plans.append(plan_scan_gate(max(chunk, 8), cfg.d_inner,
+                                    cfg.ssm_state))
     print(f"serve: {len(plans)} kernel plans warmed in-process")
 
 

@@ -3,8 +3,8 @@ model layers.
 
 Ports ``src/repro/model/pallas_mode.py``: same fields, same defaults,
 same ``configure`` and scoped context manager.  The layers
-(:mod:`.attention`, :mod:`.mlp`) read :func:`mode` on every call: when
-``enabled``, the plain torch paths are replaced by the kernels in
+(:mod:`.attention`, :mod:`.mlp`, :mod:`.ssm`) read :func:`mode` on every
+call: when ``enabled``, the plain torch paths are replaced by the kernels in
 :mod:`repro_torch.kernels.ops` wherever the operand shapes clear the
 per-kernel thresholds below.  On a CUDA tensor ``ops`` launches the
 kernel; on a CPU tensor it runs the kernel's plain version, so the CPU
@@ -25,9 +25,10 @@ class KernelMode:
     #: flash attention only for query chunks at/above this length
     min_attn_q: int = 32
     #: fused scan+gate kernel only for sequence chunks at/above this
-    #: (Mamba path, not yet ported)
     min_scan_seq: int = 32
-    #: use the fused scan+gate kernel (vs the plain selective_scan one)
+    #: use the fused scan+gate kernel; when off, the Mamba layers run the
+    #: plain torch scan (as the reference runs jnp, ``ssm.py:87-94``), not
+    #: the selective_scan kernel
     fused_scan_gate: bool = True
 
 

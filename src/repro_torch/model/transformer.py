@@ -16,8 +16,11 @@ helpers, ``_stack_walk``, ``chunk_step``, ``serve_decode_step``,
 * Sharding annotations and ``gather_params_for_compute`` are no-ops on
   one device and are dropped.
 
-Only attention mixers with SwiGLU MLPs are ported: any other layer kind
-raises ``NotImplementedError``.
+Two mixers are ported, attention and Mamba (``model/ssm.py``), each
+with a SwiGLU MLP or with no FFN: dense decoders, falcon-mamba and the
+jamba attention/Mamba interleave without experts.  Any other layer kind
+(MoE, cross attention, encoders, frontends, M-RoPE) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 from ..configs.registry import ArchConfig
 from . import attention as ATT
 from . import mlp as MLP
+from . import ssm as SSM
 from .layers import (device_of, dtype_of, embed, embed_init, make_generator,
                      rmsnorm, rmsnorm_init, unembed)
 
@@ -88,10 +92,11 @@ def check_supported(cfg: ArchConfig) -> List[LayerSpec]:
             f"{cfg.name}: encoders, frontends and M-RoPE are not ported yet")
     specs = layer_specs(cfg, "decoder")
     for spec in specs:
-        if spec.mixer != "attn" or spec.ffn != "mlp" or spec.cross:
+        if spec.mixer not in ("attn", "mamba") or \
+                spec.ffn not in ("mlp", "none") or spec.cross:
             raise NotImplementedError(
                 f"{cfg.name}: layer kind {spec} is not ported yet "
-                "(only attention mixers with SwiGLU MLPs)")
+                "(only attention or Mamba mixers with a SwiGLU MLP or none)")
     return specs
 
 
@@ -99,14 +104,17 @@ def check_supported(cfg: ArchConfig) -> List[LayerSpec]:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_layer(gen: torch.Generator, cfg: ArchConfig,
+def _init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec,
                 dtype: torch.dtype) -> Dict:
-    return {
-        "ln1": rmsnorm_init(cfg.d_model, gen.device),
-        "mixer": ATT.init_attention(gen, cfg, dtype),
-        "ln2": rmsnorm_init(cfg.d_model, gen.device),
-        "ffn": MLP.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
-    }
+    p: Dict[str, Any] = {"ln1": rmsnorm_init(cfg.d_model, gen.device)}
+    if spec.mixer == "attn":
+        p["mixer"] = ATT.init_attention(gen, cfg, dtype)
+    else:
+        p["mixer"] = SSM.init_mamba(gen, cfg, dtype)
+    if spec.ffn == "mlp":
+        p["ln2"] = rmsnorm_init(cfg.d_model, gen.device)
+        p["ffn"] = MLP.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
@@ -120,7 +128,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     p: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype),
         "final_ln": rmsnorm_init(cfg.d_model, dev),
-        "layers": [_init_layer(gen, cfg, dtype) for _ in specs],
+        "layers": [_init_layer(gen, cfg, spec, dtype) for spec in specs],
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, cfg.vocab, cfg.d_model, dtype)
@@ -129,6 +137,12 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
 
 def _head(params) -> torch.Tensor:
     return params.get("lm_head", params["embed"])
+
+
+def _ffn(p, spec: LayerSpec, cfg: ArchConfig, x):
+    if spec.ffn == "mlp":
+        x = x + MLP.mlp(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -146,13 +160,16 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor
     positions = torch.arange(seq, device=x.device)[None].expand(b, seq)
     cache: Cache = []
     for p, spec in zip(params["layers"], specs):
-        h, (k, v) = ATT.attention(p["mixer"], cfg,
-                                  rmsnorm(x, p["ln1"], cfg.norm_eps),
-                                  positions, window=spec.window,
-                                  return_kv=True)
-        x = x + h
-        x = x + MLP.mlp(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps))
-        cache.append({"k": k, "v": v})
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        if spec.mixer == "attn":
+            h, (k, v) = ATT.attention(p["mixer"], cfg, h, positions,
+                                      window=spec.window, return_kv=True)
+            cache.append({"k": k, "v": v})
+        else:
+            h, (conv, ssm_st) = SSM.mamba(p["mixer"], cfg, h,
+                                          return_state=True)
+            cache.append({"conv": conv, "ssm": ssm_st})
+        x = _ffn(p, spec, cfg, x + h)
     x = rmsnorm(x[:, -1:, :], params["final_ln"], cfg.norm_eps)
     return unembed(x[:, 0, :], _head(params)), cache
 
@@ -162,13 +179,17 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: Cache,
     """One decode step at the shared position ``cache_len``.
     token: (b, 1); returns (logits (b, vocab), cache)."""
     def layer(p, spec, x, lc):
-        h, k, v = ATT.decode_attention(p["mixer"], cfg,
-                                       rmsnorm(x, p["ln1"], cfg.norm_eps),
-                                       lc["k"], lc["v"], cache_len,
-                                       window=spec.window)
-        x = x + h
-        x = x + MLP.mlp(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps))
-        return x, {"k": k, "v": v}
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        if spec.mixer == "attn":
+            h, k, v = ATT.decode_attention(p["mixer"], cfg, h, lc["k"],
+                                           lc["v"], cache_len,
+                                           window=spec.window)
+            nc = {"k": k, "v": v}
+        else:
+            h, conv, ssm_st = SSM.mamba_decode(p["mixer"], cfg, h,
+                                               lc["conv"], lc["ssm"])
+            nc = {"conv": conv, "ssm": ssm_st}
+        return _ffn(p, spec, cfg, x + h), nc
 
     x, cache = _stack_walk(params, cfg, embed(token, params["embed"]),
                            cache, layer)
@@ -182,14 +203,18 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: Cache,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device="cuda") -> Cache:
-    """Per-layer ``{"k", "v"}`` of shape (batch, max_len, hkv, hd)."""
+    """Per-layer cache: ``{"k", "v"}`` of shape (batch, max_len, hkv, hd)
+    for an attention layer, ``{"conv", "ssm"}`` (:func:`ssm.init_mamba_cache`)
+    for a Mamba layer."""
     specs = check_supported(cfg)
     dev = device_of(device)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
     dtype = dtype_of(cfg.dtype)
     return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
              "v": torch.zeros(shape, dtype=dtype, device=dev)}
-            for _ in specs]
+            if spec.mixer == "attn" else
+            SSM.init_mamba_cache(cfg, batch, dtype, dev)
+            for spec in specs]
 
 
 def cache_slot_view(cache: Cache, i: int) -> Cache:
@@ -213,8 +238,8 @@ def cache_slot_write(cache: Cache, sub: Cache, i: int) -> Cache:
 
 def zero_cache_slot(cache: Cache, i: int) -> Cache:
     """Zero every cache row of batch slot ``i`` — reused-slot hygiene:
-    a new request admitted into a slot must never see KV rows left by a
-    longer previous occupant."""
+    a new request admitted into a slot must never see KV rows, conv
+    tails or SSM state left by a previous occupant."""
     for lc in cache:
         for t in lc.values():
             t[i].zero_()
@@ -239,11 +264,16 @@ def _stack_walk(params, cfg: ArchConfig, x, cache: Cache, layer_fn):
 def _chunk_layer(p, spec: LayerSpec, cfg: ArchConfig, x, cache, offset: int,
                  kv_len: int):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    h, k, v = ATT.chunk_attention(p["mixer"], cfg, h, cache["k"], cache["v"],
-                                  offset, kv_len, window=spec.window)
-    x = x + h
-    x = x + MLP.mlp(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps))
-    return x, {"k": k, "v": v}
+    if spec.mixer == "attn":
+        h, k, v = ATT.chunk_attention(p["mixer"], cfg, h, cache["k"],
+                                      cache["v"], offset, kv_len,
+                                      window=spec.window)
+        nc = {"k": k, "v": v}
+    else:
+        h, conv, ssm_st = SSM.mamba_chunk(p["mixer"], cfg, h, cache["conv"],
+                                          cache["ssm"])
+        nc = {"conv": conv, "ssm": ssm_st}
+    return _ffn(p, spec, cfg, x + h), nc
 
 
 def chunk_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache: Cache,
@@ -264,17 +294,26 @@ def chunk_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache: Cache,
 
 
 def _serve_decode_layer(p, spec: LayerSpec, cfg: ArchConfig, x, cache,
-                        lengths, kv_len: int):
+                        lengths, active, kv_len: int):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    # inactive slots (mid-prefill / retired) write at their own
-    # lengths[i] — a row the next prefill chunk or admission zeroing
-    # overwrites, so no select is needed on the KV pages
-    h, k, v = ATT.paged_decode_attention(p["mixer"], cfg, h, cache["k"],
-                                         cache["v"], lengths, kv_len,
-                                         window=spec.window)
-    x = x + h
-    x = x + MLP.mlp(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps))
-    return x, {"k": k, "v": v}
+    if spec.mixer == "attn":
+        # inactive slots (mid-prefill / retired) write at their own
+        # lengths[i] — a row the next prefill chunk or admission zeroing
+        # overwrites, so no select is needed on the KV pages
+        h, k, v = ATT.paged_decode_attention(p["mixer"], cfg, h, cache["k"],
+                                             cache["v"], lengths, kv_len,
+                                             window=spec.window)
+        nc = {"k": k, "v": v}
+    else:
+        h, conv, ssm_st = SSM.mamba_decode(p["mixer"], cfg, h, cache["conv"],
+                                           cache["ssm"])
+        # the recurrent states are the carry of an in-flight prefill: a
+        # garbage decode update would corrupt its next chunk, so inactive
+        # slots keep theirs
+        sel = active[:, None, None]
+        nc = {"conv": torch.where(sel, conv, cache["conv"]),
+              "ssm": torch.where(sel, ssm_st, cache["ssm"])}
+    return _ffn(p, spec, cfg, x + h), nc
 
 
 def serve_decode_step(params, cfg: ArchConfig, token: torch.Tensor,
@@ -285,14 +324,13 @@ def serve_decode_step(params, cfg: ArchConfig, token: torch.Tensor,
 
     token: (b, 1); lengths: (b,) per-slot valid cache lengths (each slot
     attends to and extends its own prefix); active: (b,) bool — slots
-    currently decoding (the reference selects recurrent state with it;
-    attention caches need no select); kv_len: page-aligned bound
+    currently decoding (Mamba layers keep the recurrent state of the
+    others; attention caches need no select); kv_len: page-aligned bound
     ≥ max(lengths)+1.  Returns (logits (b, vocab), cache)."""
-    del active
     x = embed(token, params["embed"])
     x, cache = _stack_walk(
         params, cfg, x, cache,
         lambda p, spec, xc, lc: _serve_decode_layer(p, spec, cfg, xc, lc,
-                                                    lengths, kv_len))
+                                                    lengths, active, kv_len))
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return unembed(x[:, 0, :], _head(params)), cache

@@ -1,14 +1,20 @@
 """Kernel plans fitted to Hopper: block geometry for the port's kernels.
 
 Ports the plan part of ``src/repro/core/akg.py`` (``KernelPlan``,
-``plan_matmul``, ``plan_attention``).  The port does not carry the
-PolyTOPS scheduler yet, so loop order and vector iterator are the ones
-the reference's scheduler derives for these two SCoPs (tensor-style
-scheduling puts the contiguous iterator innermost):
+``plan_matmul``, ``plan_attention``, ``plan_mamba_scan``,
+``plan_scan_gate``).  The port does not carry the PolyTOPS scheduler
+yet, so loop order and vector iterator are the ones the reference's
+scheduler derives for these SCoPs (tensor-style scheduling puts the
+contiguous iterator innermost):
 
 * matmul ``C[i,j] += A[i,kk]·B[kk,j]`` → order ``(i, kk, j)``, vector ``j``;
 * attention scores ``S[q,kk] += Q[q,d]·K[kk,d]`` → order ``(q, kk, d)``,
-  vector ``d``.
+  vector ``d``;
+* selective scan ``H[d,n] = A[t,d,n]·H[d,n] + B[t,d,n]`` → order
+  ``(t, d, n)``, vector ``n``;
+* fused scan + skip + gate (the same recurrence and an ``O[t,d]``
+  epilogue in one t/d nest; the reference ranks its schedule bases with
+  the autotuner) → order ``(d, t, n)``, vector ``n``.
 
 Tiles start from the reference's initial rule (``akg._fit_tiles``: the
 vector iterator up to 512, the others up to 128) and keep its attention
@@ -24,7 +30,13 @@ lanes (``akg.py:38-40``):
 * attention: ``d`` whole (a thread's row of the output spans the head),
   ``q`` and ``kk`` powers of two in [16, 128] (the kernel's score tile is
   a register array sized at compile time); Q, K and V tiles fit shared
-  memory.
+  memory;
+* the two scans: ``n`` whole (the reference pins it, ``akg.py:344-346``;
+  the state lanes of one channel are neighbouring threads of one warp and
+  reduce by shuffles), ``d`` fills a thread block of ``SCAN_THREADS``
+  threads (one thread per ``h[d, n]``) and ``t`` is the number of time
+  steps whose ``c`` rows the block stages in shared memory at a time
+  (the reference's initial rule, at most 128).
 """
 from __future__ import annotations
 
@@ -39,6 +51,8 @@ PAD = 8                        # shared-memory row padding (elements) in csrc/
 MATMUL_I = (32, 64, 128)
 MATMUL_J = (64, 128)
 POW2 = (16, 32, 64, 128)
+SCAN_THREADS = 512             # threads of a scan block: d tile × state
+WARP = 32
 
 
 @dataclass(frozen=True)
@@ -106,3 +120,27 @@ def plan_attention(seq_q: int, seq_k: int, head_dim: int) -> KernelPlan:
         tile["kk"] //= 2
     return KernelPlan(order, "d", tile, (0, 0, 0),
                       "S0: [q, kk, d]   # S[q,kk] = S[q,kk] + Qm[q,d] * Km[kk,d]")
+
+
+def _scan_tile(seq: int, d_inner: int, state: int) -> Dict[str, int]:
+    """``n`` whole; ``d`` so that d·n threads fill a block (rounded up to
+    whole warps when ``d_inner`` is small; the kernel masks channels past
+    ``d_inner``); ``t`` as the reference starts it, at most 128."""
+    per_warp = max(WARP // state, 1)
+    d = min(max(SCAN_THREADS // state, 1), -(-d_inner // per_warp) * per_warp)
+    return {"t": max(min(seq, 128), 1), "d": d, "n": state}
+
+
+@functools.lru_cache(maxsize=64)
+def plan_mamba_scan(seq: int, d_inner: int, state: int) -> KernelPlan:
+    tile = _scan_tile(seq, d_inner, state)
+    return KernelPlan(("t", "d", "n"), "n", tile, (0, 0, 0),
+                      "S0: [t, d, n]   # H[d,n] = A[t,d,n] * H[d,n] + B[t,d,n]")
+
+
+@functools.lru_cache(maxsize=64)
+def plan_scan_gate(seq: int, d_inner: int, state: int) -> KernelPlan:
+    tile = _scan_tile(seq, d_inner, state)
+    return KernelPlan(("d", "t", "n"), "n", tile, (0, 0, 0),
+                      "S0: [d, t, n]   # H[d,n] = A[t,d,n] * H[d,n] + B[t,d,n]; "
+                      "O[t,d] = (Y[t,d] + X[t,d] * Dk[d]) * G[t,d]")

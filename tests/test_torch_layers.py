@@ -250,10 +250,86 @@ def test_prefill_and_decode_step_match_reference():
 
 
 # ---------------------------------------------------------------------------
+# Mamba layers in the model steps: falcon-mamba, and jamba's attention/Mamba
+# interleave without experts (7 Mamba layers and 1 attention layer, MLPs)
+# ---------------------------------------------------------------------------
+
+MAMBA_ARCHS = {
+    "falcon_mamba_7b": {},
+    "jamba_v0_1_52b": dict(n_experts=0, top_k=0),
+}
+
+
+@functools.lru_cache(maxsize=2)
+def mamba_setup(arch):
+    over = dict(MAMBA_ARCHS[arch], dtype="float32")
+    jcfg = jax_get_arch(arch).smoke().scaled(**over)
+    tcfg = get_arch(arch).smoke().scaled(**over)
+    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    return jcfg, tcfg, jp, bridge.params_from_numpy(
+        jax.tree.map(np.asarray, jp), tcfg, "cpu")
+
+
+def _close_caches(tc, jc, tcfg):
+    want = bridge.cache_from_numpy(jax.tree.map(np.asarray, jc), tcfg, "cpu")
+    assert [sorted(lc) for lc in tc] == [sorted(lc) for lc in want]
+    for a, b in zip(tc, want):
+        for name in a:
+            close(a[name], b[name].numpy(), LOGIT_TOL)
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+@pytest.mark.parametrize("arch", sorted(MAMBA_ARCHS))
+def test_mamba_chunk_step_matches_reference(arch, kernels):
+    """Two chunks (offsets 0 and 8) from a random cache: logits and every
+    layer's cache (KV rows, conv tails, SSM states) equal the
+    reference's."""
+    jcfg, tcfg, jp, tp = mamba_setup(arch)
+    jc, tc = both_caches(jcfg, tcfg, 1, 32, seed=14)
+    toks = _prompt(15, 16)
+    jstep = jax.jit(lambda p, t, c, off: JT.chunk_step(p, jcfg, t, c, off, 16))
+    _, jc = jstep(jp, jnp.asarray(toks[:, :8]), jc, jnp.int32(0))
+    jl, jc = jstep(jp, jnp.asarray(toks[:, 8:]), jc, jnp.int32(8))
+    tt = torch.from_numpy(toks).long()
+    with kernel_mode(enabled=kernels, min_scan_seq=8, min_attn_q=8,
+                     min_matmul_rows=8):
+        _, tc = TT.chunk_step(tp, tcfg, tt[:, :8], tc, 0, 16)
+        tl, tc = TT.chunk_step(tp, tcfg, tt[:, 8:], tc, 8, 16)
+    close(tl, jl, LOGIT_TOL)
+    _close_caches(tc, jc, tcfg)
+
+
+@pytest.mark.parametrize("arch", sorted(MAMBA_ARCHS))
+def test_mamba_serve_decode_step_matches_reference(arch):
+    """Ragged decode with one inactive slot: logits and caches equal the
+    reference's, and the inactive slot's conv and SSM states are kept."""
+    jcfg, tcfg, jp, tp = mamba_setup(arch)
+    jc, tc = both_caches(jcfg, tcfg, 3, 32, seed=16)
+    before = [{k: t.clone() for k, t in lc.items()} for lc in tc]
+    token = _prompt(17, 3).reshape(3, 1)
+    lengths = np.array([4, 17, 9], np.int32)
+    active = np.array([True, False, True])
+    jl, jc = jax.jit(lambda p, t, c, n, a: JT.serve_decode_step(
+        p, jcfg, t, c, n, a, 24))(jp, jnp.asarray(token), jc,
+                                  jnp.asarray(lengths), jnp.asarray(active))
+    tl, tc = TT.serve_decode_step(tp, tcfg, torch.from_numpy(token).long(), tc,
+                                  torch.from_numpy(lengths).long(),
+                                  torch.from_numpy(active), 24)
+    close(tl, jl, LOGIT_TOL)
+    _close_caches(tc, jc, tcfg)
+    for lc, old in zip(tc, before):
+        if "ssm" in lc:
+            assert torch.equal(lc["ssm"][1], old["ssm"][1])
+            assert torch.equal(lc["conv"][1], old["conv"][1])
+            assert not torch.equal(lc["ssm"][0], old["ssm"][0])
+
+
+# ---------------------------------------------------------------------------
 # bridge, init and devices
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_0_6b", "gemma3_4b"])
+@pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_0_6b", "gemma3_4b",
+                                  "falcon_mamba_7b"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_bridge_round_trip_is_bit_exact(arch, dtype):
     jcfg = jax_get_arch(arch).smoke().scaled(dtype=dtype)
@@ -284,7 +360,7 @@ def test_init_params_shapes_and_seed():
     assert a["embed"].dtype == torch.bfloat16 and a["final_ln"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "qwen3_moe_30b_a3b",
+@pytest.mark.parametrize("arch", ["qwen2_vl_7b", "qwen3_moe_30b_a3b",
                                   "jamba_v0_1_52b", "seamless_m4t_large_v2"])
 def test_unported_layer_kinds_raise(arch):
     with pytest.raises(NotImplementedError):

@@ -6,6 +6,9 @@ kernel routing with thresholds lowered to 16 (``test_serve.py:157``),
 and continuous against alternating — run on both packages with the same
 f32 weights (carried across by ``repro_torch.bridge``), the same prompts
 (numpy, seeded) and the same page size.  Greedy tokens must be equal.
+The ragged interleave also runs on falcon-mamba smoke, where the decode
+half of a mixed tick must leave the prefilling slot's recurrent state
+alone.
 
 The JAX engines here never enable the Pallas path, and each runs inside
 ``pallas_mode.pallas_mode(...)`` so the process-wide mode is restored
@@ -38,10 +41,15 @@ TCFG = get_arch("granite_3_2b").smoke().scaled(dtype="float32")
 PAGE = 16
 
 
-@functools.lru_cache(maxsize=1)
-def weights():
-    jp = JT.init_params(jax.random.PRNGKey(0), JCFG)
-    return jp, bridge.params_from_numpy(jax.tree.map(np.asarray, jp), TCFG,
+FALCON = (jax_get_arch("falcon_mamba_7b").smoke().scaled(dtype="float32"),
+          get_arch("falcon_mamba_7b").smoke().scaled(dtype="float32"))
+
+
+@functools.lru_cache(maxsize=2)
+def weights(cfgs=(JCFG, TCFG)):
+    jcfg, tcfg = cfgs
+    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    return jp, bridge.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg,
                                         "cpu")
 
 
@@ -50,10 +58,10 @@ def prompt(seed: int, plen: int) -> np.ndarray:
         2, JCFG.vocab, size=(1, plen)).astype(np.int32)
 
 
-def jax_continuous(prompts, gen, max_len, batch, **kw):
+def jax_continuous(prompts, gen, max_len, batch, cfgs=(JCFG, TCFG), **kw):
     with pallas_mode.pallas_mode(enabled=False):
-        eng = jserve.ContinuousEngine(JCFG, weights()[0], batch, max_len,
-                                      max_new=gen, page=PAGE, **kw)
+        eng = jserve.ContinuousEngine(cfgs[0], weights(cfgs)[0], batch,
+                                      max_len, max_new=gen, page=PAGE, **kw)
         reqs = [jserve.Request(i, jnp.asarray(p)) for i, p in enumerate(prompts)]
         for r in reqs:
             eng.submit(r)
@@ -61,8 +69,8 @@ def jax_continuous(prompts, gen, max_len, batch, **kw):
     return [r.generated for r in reqs]
 
 
-def port_continuous(prompts, gen, max_len, batch, **kw):
-    eng = tserve.ContinuousEngine(TCFG, weights()[1], batch, max_len,
+def port_continuous(prompts, gen, max_len, batch, cfgs=(JCFG, TCFG), **kw):
+    eng = tserve.ContinuousEngine(cfgs[1], weights(cfgs)[1], batch, max_len,
                                   max_new=gen, page=PAGE, **kw)
     reqs = [tserve.Request(i, p) for i, p in enumerate(prompts)]
     for r in reqs:
@@ -146,6 +154,47 @@ def test_ragged_prefill_interleave_determinism():
     assert [r.generated for r in reqs2] == got
 
 
+@pytest.mark.parametrize("kernels", [False, True])
+def test_falcon_ragged_interleave_matches_reference(kernels):
+    """Falcon-mamba smoke through the continuous engine: ragged prompts
+    make mixed (decode + chunk) ticks; greedy tokens equal the reference
+    engine's, on the plain route and with the scan+gate route taken by
+    every 8-row chunk (``min_scan_seq=8``)."""
+    gen, max_len, chunk = 6, 48, 8
+    plens = [7, 19, 13]
+    prompts = [prompt(i + 60, pl) for i, pl in enumerate(plens)]
+    eng, reqs = port_continuous(prompts, gen, max_len, batch=2, chunk=chunk,
+                                cfgs=FALCON, use_kernels=kernels,
+                                kernel_opts=dict(min_scan_seq=8))
+    assert eng.ticks_overlap > 0
+    assert [r.generated for r in reqs] == jax_continuous(
+        prompts, gen, max_len, batch=2, chunk=chunk, cfgs=FALCON)
+
+
+def test_falcon_slot_reuse_zeroes_recurrent_state():
+    """Admission into a reused slot zeroes its conv tail and SSM state
+    (left nonzero by the previous occupant) and no other slot's; the
+    request then decodes the tokens it gets in a fresh engine."""
+    gen, max_len = 4, 48
+    eng, _ = port_continuous([prompt(70, 19), prompt(71, 9)], gen, max_len,
+                             batch=2, chunk=8, cfgs=FALCON)
+    mamba = [lc for lc in eng.cache if "ssm" in lc]
+    assert all(lc["ssm"][i].any() and lc["conv"][i].any()
+               for lc in mamba for i in (0, 1))
+    other = [lc["ssm"][1].clone() for lc in mamba]
+    req = tserve.Request(2, prompt(72, 13))
+    eng.submit(req)
+    eng._admit_free_slots()
+    assert eng.slots[0] is req
+    for lc, keep in zip(mamba, other):
+        assert not lc["ssm"][0].any() and not lc["conv"][0].any()
+        assert torch.equal(lc["ssm"][1], keep)
+    eng.run()
+    _, fresh = port_continuous([prompt(72, 13)], gen, max_len, batch=1,
+                               chunk=8, cfgs=FALCON)
+    assert req.generated == fresh[0].generated
+
+
 def test_kernel_routing_parity():
     """Kernel routes (plain versions on the CPU) with thresholds lowered
     to 16 give the tokens of the plain torch path and of the reference;
@@ -221,3 +270,12 @@ def test_serve_main_runs_on_cpu(capsys):
                  "--prompt-len", "20", "--gen", "3", "--chunk", "16"])
     out = capsys.readouterr().out
     assert "2 seqs, 6 tokens" in out and "on cpu" in out
+
+
+def test_serve_main_runs_falcon_on_cpu(capsys):
+    tserve.main(["--arch", "falcon_mamba_7b", "--smoke", "--device", "cpu",
+                 "--kernels", "--batch", "2", "--prompt-len", "40", "--gen",
+                 "3", "--chunk", "32"])
+    out = capsys.readouterr().out
+    assert "4 kernel plans warmed" in out
+    assert "2 seqs, 6 tokens" in out and "falcon-mamba-7b" in out
