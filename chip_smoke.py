@@ -5,14 +5,20 @@
 
 Phases, each of which exits nonzero on failure:
 
-1. build — compile ``src/repro_torch/csrc/*.cu`` for ``sm_90a``;
+1. build — compile ``src/repro_torch/csrc/*.cu`` for ``sm_90a``, and
+   print the matmul kernel's registers and spills (``-Xptxas -v``);
 2. kernels — each kernel against its plain PyTorch version on the card
    at the serving paths' shapes, with the tolerance printed beside the
    measured error, and its time beside the plain version's, the one
    PyTorch call that computes the same function (where there is one),
    and the bound (the larger of bytes over 3.35 TB/s and operations over
    the H100 SXM's published peak for their type: 989 TFLOP/s bf16 on the
-   tensor cores, 67 TFLOP/s f32 on the CUDA cores for the scans);
+   tensor cores, 67 TFLOP/s f32 on the CUDA cores for the scans).  Times
+   are device times with L2 flushed, the events queued behind a device
+   delay so no host latency falls between them (``time_ms``); beside the
+   kernel and the library call stands the host's µs per call
+   (``host_us``).  The matmul kernel must give the same bits on two
+   launches with the same inputs;
 3. serve — ``granite_3_2b`` at full width in bf16 with seeded random
    weights through ``ContinuousEngine`` (chunk 256, 4 slots, 8 requests of
    256-1024 prompt tokens, 32 new tokens each), with every kernel's launch
@@ -105,26 +111,105 @@ def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16):
 
 
 _L2_FLUSH = None
+_CYCLES_PER_US = None
 
 
-def time_ms(fn, iters: int = 20) -> float:
+def _event() -> torch.cuda.Event:
+    return torch.cuda.Event(enable_timing=True)
+
+
+def _hold(us: float) -> torch.cuda.Event:
+    """Queue a device-side delay of about ``us`` µs (``torch.cuda._sleep``,
+    calibrated once against CUDA events) and return an event recorded
+    after it.  Work the host queues while that event is pending starts
+    on the device back to back, without waiting on the host."""
+    global _CYCLES_PER_US
+    if _CYCLES_PER_US is None:
+        torch.cuda._sleep(1000)
+        s, e = _event(), _event()
+        s.record()
+        torch.cuda._sleep(2_000_000)
+        e.record()
+        torch.cuda.synchronize()
+        _CYCLES_PER_US = 2e6 / (s.elapsed_time(e) * 1e3)
+    torch.cuda._sleep(int(us * _CYCLES_PER_US))
+    done = torch.cuda.Event()
+    done.record()
+    return done
+
+
+def time_ms(fn, iters: int = 20, cover: bool = True) -> float:
     """Mean device time of ``fn`` with L2 flushed before each call (the
-    serving path finds each weight cold): CUDA events around each call."""
+    serving path finds each weight cold): CUDA events around each call.
+
+    Each iteration first queues a device-side delay that outlasts the
+    host's enqueue of flush, start event, call and end event, so the
+    events bracket device work only and not the wrapper's host latency.
+    If a delay ran out before its iteration was queued, the run is
+    repeated with longer delays; with ``cover`` it fails if that never
+    holds.  ``cover=False`` is for plain versions that are host-driven
+    loops of thousands of launches, which a delay may not cover: the
+    calls it did not cover are counted in a printed note, and their
+    times include the host's gaps."""
     global _L2_FLUSH
     if _L2_FLUSH is None:
         _L2_FLUSH = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        _L2_FLUSH.zero_()
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
+    s, e = _event(), _event()
+    t0 = time.perf_counter()
+    _L2_FLUSH.zero_()
+    s.record()
+    fn()
+    e.record()
+    delay_us = 2e6 * (time.perf_counter() - t0) + 50.0
     torch.cuda.synchronize()
+    for _ in range(3):
+        pairs, late = [], 0
+        for _ in range(iters):
+            held = _hold(delay_us)
+            _L2_FLUSH.zero_()
+            s, e = _event(), _event()
+            s.record()
+            fn()
+            e.record()
+            late += held.query()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        if late == 0 or not cover:
+            break
+        delay_us *= 4
+    require(late == 0 or not cover,
+            f"timing: the device delay ran out before the host queued "
+            f"{late} of {iters} calls")
+    if late:
+        print(f"  note: {late} of {iters} timed calls outran the device delay; "
+              f"their times include host gaps")
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Host µs per call of ``fn`` (the wrapper's checks, plan and launch)
+    over ``n`` calls queued while the device is held busy, so no call
+    waits on the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    hold_us = 4e6 * n * (time.perf_counter() - t0) + 200.0
+    torch.cuda.synchronize()
+    for _ in range(3):
+        held = _hold(hold_us)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter() - t0
+        late = held.query()
+        torch.cuda.synchronize()
+        if not late:
+            return dt / n * 1e6
+        hold_us *= 4
+    raise SmokeFailure("host timing: the device delay ran out")
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict) -> float:
@@ -145,46 +230,124 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict) -> floa
 # ---------------------------------------------------------------------------
 
 def phase_build() -> float:
+    """Build the library; meanwhile compile ``matmul.cu`` once more with
+    ``-Xptxas -v`` and print its kernels' registers and spills."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
     from repro_torch.kernels import build
-    build.load_library()
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
+    ptxas = subprocess.Popen(
+        [nvcc, *build.CUDA_FLAGS, "-Xptxas", "-v", "-c",
+         str(build.CSRC / "matmul.cu"), "-o", str(build.BUILD_DIR / "ptxas_matmul.o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        build.load_library()
+        out, _ = ptxas.communicate(timeout=600)
+    finally:
+        if ptxas.poll() is None:
+            ptxas.kill()
+            ptxas.wait()
     print(f"[build] csrc/{{{','.join(build.SOURCES)}}} for sm_90a in "
           f"{build.BUILD_SECONDS:.1f} s")
+    require(ptxas.returncode == 0, f"nvcc -Xptxas -v matmul.cu failed:\n{out}")
+    for line in out.splitlines():
+        if "ptxas" in line or "spill" in line:
+            print(f"  {line.strip()}")
     return build.BUILD_SECONDS
+
+
+MM_CASES = [(256, 2048, 8192), (256, 8192, 2048), (200, 2048, 8192),
+            (37, 70, 50),
+            # K a multiple of neither the split x kk (256) nor kk: the last
+            # split's last k tile is ragged
+            (256, 8160, 2048)]
 
 
 def phase_matmul(gen: torch.Generator) -> dict:
     from repro_torch.kernels import matmul_polytops as mm
     from repro_torch.kernels import ref
-    from repro_torch.plan import plan_matmul
+    from repro_torch.plan import matmul_launch_geometry, plan_matmul
 
     print("[kernels] matmul (csrc/matmul.cu) vs ref.matmul_ref")
-    rec = None
+    cases = []
     worst = 0.0
-    for m, k, n in [(256, 2048, 8192), (256, 8192, 2048), (200, 2048, 8192),
-                    (37, 70, 50)]:
+    for m, k, n in MM_CASES:
         a = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         b = (torch.randn((k, n), generator=gen, device="cuda")
              * k ** -0.5).to(torch.bfloat16)
-        tile = plan_matmul(m, n, k).tile
+        k8, n8 = -(-k // 8) * 8, -(-n // 8) * 8
+        tile = plan_matmul(m, n8, k8).tile
+        geo = matmul_launch_geometry(m, n8, k8)
         got = mm.matmul(a, b)
+        again = mm.matmul(a, b)
         torch.cuda.synchronize()
-        worst = max(worst, compare(f"({m},{k})x({k},{n}) tiles={tile}", got,
-                                   ref.matmul_ref(a, b), MM_TOL))
+        worst = max(worst, compare(
+            f"({m},{k})x({k},{n}) tiles={tile} split={geo['split']} "
+            f"stages={geo['stages']} blocks={geo['blocks']}", got,
+            ref.matmul_ref(a, b), MM_TOL))
+        same = torch.equal(got, again)
+        print(f"    two launches bit-identical: {same}")
+        require(same, f"matmul ({m},{k})x({k},{n}): two launches differ")
         ms = time_ms(lambda: mm.matmul(a, b))
         plain = time_ms(lambda: ref.matmul_ref(a, b))
         lib = time_ms(lambda: torch.matmul(a, b))
+        hus, lib_hus = host_us(lambda: mm.matmul(a, b)), host_us(lambda: torch.matmul(a, b))
         bms, by = bound_ms((m * k + k * n + m * n) * 2, 2.0 * m * n * k)
-        print(f"  time ({m},{k})x({k},{n}): kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound {bms:.4f} ms "
-              f"({by})")
-        if rec is None:
-            rec = dict(name="matmul", route="cuda",
-                       source="src/repro_torch/csrc/matmul.cu",
-                       replaces="src/repro/kernels/matmul_polytops.py:60",
-                       ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                       library_ms=lib)
-    rec["max_abs_err"] = worst
-    return rec
+        print(f"  time ({m},{k})x({k},{n}): kernel {ms:.4f} ms (host {hus:.1f} "
+              f"us/call), plain {plain:.4f} ms, torch.matmul {lib:.4f} ms (host "
+              f"{lib_hus:.1f} us/call), bound {bms:.4f} ms ({by})")
+        cases.append(dict(shape=[m, k, n], ms=ms, plain_ms=plain, library_ms=lib,
+                          bound_ms=bms, bound_by=by, host_us=hus,
+                          library_host_us=lib_hus))
+    sweep_matmul_geometry(gen)
+    first = cases[0]
+    return dict(name="matmul", route="cuda", source="src/repro_torch/csrc/matmul.cu",
+                replaces="src/repro/kernels/matmul_polytops.py:60",
+                max_abs_err=worst, cases=cases,
+                **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")})
+
+
+# (b, c, kv_len, q_offset): first the serving chunk (one slot, b = 1, at
+# offsets 512 and 768), then the b = 4 cases of earlier runs
+FLASH_CASES = [(1, 256, 1024, 768), (1, 256, 768, 512), (4, 256, 1024, 768),
+               (4, 256, 256, 0), (4, 100, 1000, 900)]
+
+
+def sweep_matmul_geometry(gen: torch.Generator) -> None:
+    """The serving shapes at every K split and ring depth the kernel
+    takes, beside the plan's choice (``plan.matmul_launch_geometry``):
+    the evidence for that choice on this card.  Launched through the
+    library directly, so the wrapper's launch count does not move."""
+    from repro_torch.kernels import build
+    from repro_torch.plan import matmul_launch_geometry, plan_matmul
+
+    lib = build.load_library()
+    for m, k, n in MM_CASES[:2]:
+        a = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        b = (torch.randn((k, n), generator=gen, device="cuda")
+             * k ** -0.5).to(torch.bfloat16)
+        c = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+        tile = plan_matmul(m, n, k).tile
+        geo = matmul_launch_geometry(m, n, k)
+        tiles = -(-m // tile["i"]) * -(-n // tile["j"])
+        ws = torch.empty(4 * tiles * tile["i"] * tile["j"], device="cuda")
+        counters = torch.zeros(tiles, dtype=torch.int32, device="cuda")
+        times = []
+        for split in (1, 2, 4):
+            if (k // tile["kk"]) % split:
+                continue
+            for stages in (3, 4, 5):
+                def run():
+                    build.check(lib.repro_matmul_bf16(
+                        a.data_ptr(), b.data_ptr(), c.data_ptr(), ws.data_ptr(),
+                        counters.data_ptr(), m, n, k, tile["i"], tile["j"],
+                        tile["kk"], split, stages, build.stream_ptr(a.device)),
+                        "matmul geometry sweep")
+                times.append(f"split {split} stages {stages} {time_ms(run):.4f}")
+        print(f"  geometry sweep ({m},{k})x({k},{n}), plan split {geo['split']} "
+              f"stages {geo['stages']}, ms: {'; '.join(times)}")
 
 
 def phase_flash(gen: torch.Generator) -> dict:
@@ -194,10 +357,10 @@ def phase_flash(gen: torch.Generator) -> dict:
 
     print("[kernels] flash attention (csrc/flash_attention.cu) vs "
           "ref.flash_attention_ref")
-    b, h, hkv, d, cache_len = 4, 32, 8, 64, 1088
-    rec = None
+    h, hkv, d, cache_len = 32, 8, 64, 1088
+    cases = []
     worst = 0.0
-    for c, kv_len, off in [(256, 1024, 768), (256, 256, 0), (100, 1000, 900)]:
+    for b, c, kv_len, off in FLASH_CASES:
         q = torch.randn((b, c, h, d), generator=gen, device="cuda").to(torch.bfloat16)
         # k/v are page-aligned prefixes of a KV cache, read in place as the
         # serving path reads them
@@ -220,22 +383,27 @@ def phase_flash(gen: torch.Generator) -> dict:
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         ms = time_ms(lambda: fa.flash_attention(q, k, v, q_offset=off))
         plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, q_offset=off))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        lib = time_ms(lib_fn)
+        hus = host_us(lambda: fa.flash_attention(q, k, v, q_offset=off))
+        lib_hus = host_us(lib_fn)
         nbytes = (2 * q.numel() + 2 * b * kv_len * hkv * d) * 2
         bms, by = bound_ms(nbytes, 4.0 * d * pairs)
-        print(f"  time c={c} kv_len={kv_len} q_offset={off}: kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, "
-              f"scaled_dot_product_attention {lib:.4f} ms, bound "
-              f"{bms:.4f} ms ({by})")
-        if rec is None:
-            rec = dict(name="flash_attention", route="cuda",
-                       source="src/repro_torch/csrc/flash_attention.cu",
-                       replaces="src/repro/kernels/flash_attention.py:96",
-                       ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                       library_ms=lib)
-    rec["max_abs_err"] = worst
-    return rec
+        print(f"  time b={b} c={c} kv_len={kv_len} q_offset={off}: kernel "
+              f"{ms:.4f} ms (host {hus:.1f} us/call), plain {plain:.4f} ms, "
+              f"scaled_dot_product_attention {lib:.4f} ms (host {lib_hus:.1f} "
+              f"us/call), bound {bms:.4f} ms ({by})")
+        cases.append(dict(shape=[b, h, c, kv_len, off], ms=ms, plain_ms=plain,
+                          library_ms=lib, bound_ms=bms, bound_by=by, host_us=hus,
+                          library_host_us=lib_hus))
+    first = cases[0]
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:96",
+                max_abs_err=worst, cases=cases,
+                **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")})
 
 
 def ssm_operands(gen: torch.Generator, b: int, s: int, di: int, st: int,
@@ -319,12 +487,14 @@ def phase_scan_gate(gen: torch.Generator) -> dict:
         worst = max(worst, e)
 
     ms = time_ms(lambda: sg.scan_gate(**ops, h0=h0))
-    plain = time_ms(lambda: ref.scan_gate_ref(**ops, h0=h0), iters=5)
+    hus = host_us(lambda: sg.scan_gate(**ops, h0=h0))
+    plain = time_ms(lambda: ref.scan_gate_ref(**ops, h0=h0), iters=5, cover=False)
     bms, by = _scan_bound(dict(ops, h0=h0),
                           o_whole.numel() * 2 + h_whole.numel() * 4, gate=True)
-    print(f"  time b={b} s={s} di={di} st={st}: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, library call none (no single PyTorch call computes "
-          f"it), bound {bms:.4f} ms ({by})")
+    print(f"  time b={b} s={s} di={di} st={st}: kernel {ms:.4f} ms (host "
+          f"{hus:.1f} us/call), plain {plain:.4f} ms (a host loop over time), "
+          f"library call none (no single PyTorch call computes it), bound "
+          f"{bms:.4f} ms ({by})")
     return dict(name="scan_gate", route="cuda",
                 source="src/repro_torch/csrc/scan_gate.cu",
                 replaces="src/repro/kernels/scan_gate.py:85", ms=ms,
@@ -350,10 +520,13 @@ def phase_selective_scan(gen: torch.Generator) -> dict:
                                    ref.selective_scan_ref(**abc), SCAN_TOL))
         if rec is None:
             ms = time_ms(lambda: msc.selective_scan(**abc))
-            plain = time_ms(lambda: ref.selective_scan_ref(**abc), iters=5)
+            hus = host_us(lambda: msc.selective_scan(**abc))
+            plain = time_ms(lambda: ref.selective_scan_ref(**abc), iters=5,
+                            cover=False)
             bms, by = _scan_bound(abc, got.numel() * 4, gate=False)
-            print(f"  time {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                  f"library call none, bound {bms:.4f} ms ({by})")
+            print(f"  time {shape}: kernel {ms:.4f} ms (host {hus:.1f} us/call), "
+                  f"plain {plain:.4f} ms (a host loop over time), library call "
+                  f"none, bound {bms:.4f} ms ({by})")
             rec = dict(name="selective_scan", route="cuda",
                        source="src/repro_torch/csrc/scan_gate.cu",
                        replaces="src/repro/kernels/mamba_scan.py:64", ms=ms,
@@ -504,8 +677,19 @@ def profile_steps(cfg, params, max_len) -> None:
                          reverse=True)[:4]
             tops = "; ".join(f"{e.key[:48]} {e.self_device_time_total / reps / 1e3:.3f} ms"
                              f" x{e.count // reps}" for e in top)
+            ours = "; ".join(
+                f"{_kernel_name(e.key)} {e.self_device_time_total / reps / 1e3:.3f} ms"
+                f" x{e.count // reps}" for e in events if "repro::" in e.key)
             print(f"  {name}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
-                  f"({busy / wall:.1%}), idle {1 - busy / wall:.1%}; top: {tops}")
+                  f"({busy / wall:.1%}), idle {1 - busy / wall:.1%}; top: {tops}; "
+                  f"csrc kernels: {ours or 'none'}")
+
+
+def _kernel_name(key: str) -> str:
+    """``void repro::(anonymous namespace)::matmul_kernel<2>(...)`` →
+    ``matmul_kernel<2>``."""
+    name = key[key.index("repro::"):].replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("::")[-1]
 
 
 def check_chunk_step(cfg, params, toks, max_len, relative: bool) -> None:
@@ -597,8 +781,9 @@ def main() -> int:
     for rec in records:
         rec["launches"] = granite[rec["name"]] + falcon[rec["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cases")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in records]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,255 @@
+// Hopper building blocks shared by the port's kernels: mbarriers, TMA tile
+// loads, wgmma shared-memory descriptors and the m64n128k16 bf16 product,
+// and on the host a cache of TMA tensor maps.  Inline PTX only (no CuTe),
+// so a source that includes this builds in seconds.  sm_90a.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <cstring>
+#include <mutex>
+#include <unordered_map>
+
+namespace repro {
+namespace hopper {
+
+// ---------------------------------------------------------------------------
+// device: barriers and TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Make barrier initialisation visible to the async proxy (TMA) and the
+// cluster before any thread uses the barriers.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also tells the barrier to expect `bytes` of TMA data.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Spin until the barrier's phase of parity `parity` has completed.  A fresh
+// barrier counts its (nonexistent) phase of parity 1 as complete, so a
+// producer waits on `phase ^ 1` of an empty-slot barrier and passes at once
+// on its first round.  A wait of more than 2^32 clock cycles (seconds) is a
+// deadlock: it traps, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0)
+      start = clock64();
+    else if (clock64() - start > (1ll << 32))
+      __trap();
+  }
+}
+
+// TMA: copy the box at element coordinates (c0 innermost, c1) of `map` into
+// shared memory at `dst`; completion is counted on `bar` in bytes.  Elements
+// outside the tensor arrive as zeros and still count.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Sync the first `threads` threads of the block on named barrier `id`
+// (0 is __syncthreads's).
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// device: wgmma
+// ---------------------------------------------------------------------------
+
+// Shared-memory matrix descriptor for a tile written by TMA with 128-byte
+// swizzle (1024-byte aligned swizzle atoms of 8 rows × 128 bytes).  `lbo`
+// and `sbo` in bytes:
+//  * K-major operand (rows along M/N, 64 bf16 of K per 128-byte row): the
+//    8-row groups along M/N are `sbo` = 1024 apart; `lbo` is unused (16).
+//  * MN-major operand (rows along K, 64 bf16 of M/N per row): the 8-row
+//    groups along K are `sbo` = 1024 apart, the 64-column atoms along M/N
+//    are `lbo` apart.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma instructions.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64×128] += A[64×16] · B[16×128], bf16 in, f32 accumulate, both
+// operands from shared memory: A K-major, B MN-major (transposed, imm-trans-b
+// = 1).  Thread t of the warpgroup holds, for n8 slice j, d[4j..4j+3] at
+// rows 16·(t/32) + (t%32)/4 (+8 for the last two) and columns
+// 8j + 2·(t%4) (+1).
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_tn(float (&d)[64],
+                                                         uint64_t desc_a,
+                                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// host: TMA tensor maps
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the library
+// links against the runtime only (no -lcuda).
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) !=
+        cudaSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// The tensor map of a row-major bf16 matrix (rows × cols, row stride cols)
+// read in boxes of box_rows × box_cols with 128-byte swizzle, zeros outside
+// the matrix.  A map depends on nothing but these six numbers, so maps are
+// cached by them: a hit is always right, and a weight's map is encoded once.
+// `cols` must be a multiple of 8 (TMA takes 16-byte row strides) and `ptr`
+// 16-byte aligned.  Returns false if the map cannot be encoded.
+inline bool tensor_map_2d(const void* ptr, uint64_t rows, uint64_t cols,
+                          uint32_t box_rows, uint32_t box_cols, CUtensorMap* out) {
+  struct Key {
+    const void* ptr;
+    uint64_t rows, cols;
+    uint32_t box_rows, box_cols;
+    bool operator==(const Key& o) const {
+      return ptr == o.ptr && rows == o.rows && cols == o.cols &&
+             box_rows == o.box_rows && box_cols == o.box_cols;
+    }
+  };
+  struct Hash {
+    size_t operator()(const Key& k) const {
+      size_t h = std::hash<const void*>()(k.ptr);
+      for (uint64_t v : {k.rows, k.cols, uint64_t(k.box_rows) << 32 | k.box_cols})
+        h ^= std::hash<uint64_t>()(v) + 0x9e3779b97f4a7c15ull + (h << 6) + (h >> 2);
+      return h;
+    }
+  };
+  static std::mutex mu;
+  static std::unordered_map<Key, CUtensorMap, Hash> cache;
+  const Key key{ptr, rows, cols, box_rows, box_cols};
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(key);
+  if (it != cache.end()) {
+    std::memcpy(out, &it->second, sizeof(CUtensorMap));
+    return true;
+  }
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[2] = {cols, rows};
+  cuuint64_t strides[1] = {cols * sizeof(__nv_bfloat16)};
+  cuuint32_t box[2] = {box_cols, box_rows};
+  cuuint32_t elem_strides[2] = {1, 1};
+  CUtensorMap map;
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+             strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  if (cache.size() >= 4096) cache.clear();  // activations come and go
+  cache.emplace(key, map);
+  std::memcpy(out, &map, sizeof(CUtensorMap));
+  return true;
+}
+
+}  // namespace hopper
+}  // namespace repro

@@ -27,7 +27,7 @@ BUILD_SECONDS: Optional[float] = None
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.repro_matmul_bf16.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.repro_matmul_bf16.argtypes = [p] * 5 + [i] * 8 + [p]
     lib.repro_matmul_bf16.restype = i
     lib.repro_flash_attention_bf16.argtypes = (
         [p, p, p, p] + [i] * 10 + [ll] * 12 + [p])
@@ -63,6 +63,8 @@ def check(rc: int, what: str) -> None:
     """Raise if a launch returned an error code."""
     if rc == -1:
         raise ValueError(f"{what}: shape or tile not instantiated in csrc/")
+    if rc == -2:
+        raise RuntimeError(f"{what}: a TMA tensor map could not be encoded")
     if rc != 0:
         msg = load_library().repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA launch failed ({rc}: {msg})")

@@ -23,10 +23,13 @@ card and to the kernels in ``csrc/`` instead of to the TPU's VMEM and
 lanes (``akg.py:38-40``):
 
 * every edge is a multiple of 16 (bf16 tensor-core fragments are 16 deep);
-* matmul: ``i`` ∈ {32, 64, 128} and ``j`` ∈ {64, 128} (the kernel's 2×4
-  warp grid of 16-multiple warp tiles; the f32 accumulator tile stays
-  ≤ 64 KB of registers), ``kk`` ≤ 128; two stages of A and B tiles fit
-  the 227 KB of shared memory a block may use;
+* matmul (``csrc/matmul.cu``, TMA and wgmma): ``i`` a multiple of 64 (one
+  consumer warpgroup per 64 rows; the kernel is built for 64 and 128),
+  ``j`` a multiple of 8 up to 256 (wgmma's n; built for 128), ``kk`` = 64
+  (one 128-byte swizzle row of bf16); the f32 accumulator tile stays
+  ≤ 64 KB of registers.  The split of K and the depth of the load ring
+  are launch geometry of the card, not part of the tile:
+  :func:`matmul_launch_geometry`;
 * attention: ``d`` whole (a thread's row of the output spans the head),
   ``q`` and ``kk`` powers of two in [16, 128] (the kernel's score tile is
   a register array sized at compile time); Q, K and V tiles fit shared
@@ -48,8 +51,17 @@ SMEM_BYTES = 227 * 1024        # shared memory one block may use on H100
 ACC_BYTES = 64 * 1024          # f32 accumulator tile a block keeps in registers
 EDGE = 16                      # bf16 tensor-core fragment depth
 PAD = 8                        # shared-memory row padding (elements) in csrc/
-MATMUL_I = (32, 64, 128)
-MATMUL_J = (64, 128)
+SMS = 132                      # streaming multiprocessors of an H100 SXM
+MATMUL_I = (64, 128)           # consumer warpgroups × 64 rows
+MATMUL_J = (128,)              # wgmma n
+MATMUL_KK = 64                 # one 128-byte swizzle row of bf16
+#: (i, j, kk) tiles ``csrc/matmul.cu`` is instantiated for
+MATMUL_TILES = frozenset((i, j, MATMUL_KK) for i in MATMUL_I for j in MATMUL_J)
+MATMUL_SPLITS = (1, 2, 4)      # K splits
+MATMUL_MIN_KTILES = 4          # k tiles each split keeps at least
+MATMUL_STAGES = 5              # depth of the TMA load ring
+MATMUL_ALIGN = 1024            # the ring's alignment slack (swizzle atom)
+MATMUL_EPI_PAD = 8             # f32 row padding of the staged tile
 POW2 = (16, 32, 64, 128)
 SCAN_THREADS = 512             # threads of a scan block: d tile × state
 WARP = 32
@@ -82,10 +94,24 @@ def _snap(t: int, allowed: Tuple[int, ...]) -> int:
     return max(fits) if fits else min(allowed)
 
 
-def matmul_smem_bytes(tile: Dict[str, int], bytes_per_elem: int = 2,
-                      stages: int = 2) -> int:
+def matmul_ring_bytes(tile: Dict[str, int], stages: int = MATMUL_STAGES) -> int:
+    """Shared memory of the load ring: ``stages`` bf16 A and B tiles."""
     i, j, kk = tile["i"], tile["j"], tile["kk"]
-    return stages * (i * (kk + PAD) + kk * (j + PAD)) * bytes_per_elem
+    return stages * (i * kk + kk * j) * 2
+
+
+def matmul_epilogue_bytes(tile: Dict[str, int]) -> int:
+    """The f32 tile the epilogue stages over the ring."""
+    return tile["i"] * (tile["j"] + MATMUL_EPI_PAD) * 4
+
+
+def matmul_smem_bytes(tile: Dict[str, int], stages: int = MATMUL_STAGES) -> int:
+    """Dynamic shared memory of one block (``Geometry::smem_bytes`` in
+    ``csrc/matmul.cu``): the alignment slack, the ring or the staged f32
+    tile over it, whichever is larger, two mbarriers per stage and a
+    flag."""
+    return (MATMUL_ALIGN + max(matmul_ring_bytes(tile, stages),
+                               matmul_epilogue_bytes(tile)) + 16 * stages + 16)
 
 
 def attention_smem_bytes(tile: Dict[str, int],
@@ -101,11 +127,36 @@ def plan_matmul(m: int, n: int, k: int) -> KernelPlan:
     tile = {it: _initial_tile(it, dims[it], "j") for it in order}
     tile["i"] = _snap(tile["i"], MATMUL_I)
     tile["j"] = _snap(tile["j"], MATMUL_J)
-    tile["kk"] = max(EDGE, min(128, tile["kk"]) // EDGE * EDGE)
-    while matmul_smem_bytes(tile) > SMEM_BYTES and tile["kk"] > EDGE:
-        tile["kk"] = max(EDGE, tile["kk"] // 2 // EDGE * EDGE)
+    tile["kk"] = MATMUL_KK
     return KernelPlan(order, "j", tile, (0, 0, 0),
                       "S0: [i, kk, j]   # C[i,j] = C[i,j] + A[i,kk] * B[kk,j]")
+
+
+@functools.lru_cache(maxsize=64)
+def matmul_launch_geometry(m: int, n: int, k: int) -> Dict[str, int]:
+    """How ``csrc/matmul.cu`` launches the planned tile on an H100.
+
+    ``split``: the largest K split in :data:`MATMUL_SPLITS` that keeps
+    the grid within one wave of :data:`SMS` blocks (one block per SM),
+    divides the k tiles and leaves each split at least
+    :data:`MATMUL_MIN_KTILES` of them.  ``stages``: the ring depth,
+    :data:`MATMUL_STAGES` or fewer if a block's shared memory would not
+    fit.  Also returns ``blocks``, ``smem`` (bytes per block) and
+    ``workspace`` (f32 elements of the split partials, 0 without a
+    split).
+    """
+    tile = plan_matmul(m, n, k).tile
+    tiles = -(-m // tile["i"]) * -(-n // tile["j"])
+    ktiles = -(-k // tile["kk"])
+    split = max(s for s in MATMUL_SPLITS
+                if s == 1 or (tiles * s <= SMS and ktiles % s == 0
+                              and ktiles // s >= MATMUL_MIN_KTILES))
+    stages = MATMUL_STAGES
+    while matmul_smem_bytes(tile, stages) > SMEM_BYTES and stages > 1:
+        stages -= 1
+    workspace = split * tiles * tile["i"] * tile["j"] if split > 1 else 0
+    return {"split": split, "stages": stages, "blocks": tiles * split,
+            "smem": matmul_smem_bytes(tile, stages), "workspace": workspace}
 
 
 @functools.lru_cache(maxsize=64)

@@ -122,11 +122,75 @@ def test_plan_matmul_order_matches_reference_and_fits_hopper(m, n, k):
     assert got.loop_order == want.loop_order
     assert got.vector_iter == want.vector_iter
     t = got.tile
+    assert set(t) == {"i", "j", "kk"}         # the reference's keys only
     assert all(v % tplan.EDGE == 0 for v in t.values())
     assert t["i"] in tplan.MATMUL_I and t["j"] in tplan.MATMUL_J
-    assert t["kk"] <= 128
+    assert t["i"] % 64 == 0 and t["j"] % 8 == 0 and t["j"] <= 256
+    assert t["kk"] == 64                       # one 128-byte swizzle row
+    assert (t["i"], t["j"], t["kk"]) in tplan.MATMUL_TILES
     assert tplan.matmul_smem_bytes(t) <= tplan.SMEM_BYTES
     assert t["i"] * t["j"] * 4 <= tplan.ACC_BYTES
+
+
+# (m, n, k): the two serving shapes, a ragged one, chip_smoke's smallest
+# (K and N padded to 8) and its split-remainder case
+GEOMETRY_SHAPES = MATMUL_SHAPES + [(37, 56, 72), (256, 2048, 8160),
+                                   (1, 8, 8), (4096, 4096, 4096)]
+
+
+@pytest.mark.parametrize("m,n,k", GEOMETRY_SHAPES)
+def test_matmul_launch_geometry_fits_hopper(m, n, k):
+    tile = tplan.plan_matmul(m, n, k).tile
+    geo = tplan.matmul_launch_geometry(m, n, k)
+    ktiles = -(-k // tile["kk"])
+    tiles = -(-m // tile["i"]) * -(-n // tile["j"])
+    assert geo["split"] in tplan.MATMUL_SPLITS
+    assert ktiles % geo["split"] == 0           # the split divides the k tiles
+    assert geo["split"] == 1 or ktiles // geo["split"] >= tplan.MATMUL_MIN_KTILES
+    assert geo["split"] == 1 or geo["blocks"] <= tplan.SMS
+    assert geo["blocks"] == tiles * geo["split"]
+    assert 3 <= geo["stages"] <= 5
+    # the ring and the staged f32 tile over it fit 227 KB
+    ring = tplan.matmul_ring_bytes(tile, geo["stages"])
+    epi = tplan.matmul_epilogue_bytes(tile)
+    assert epi <= ring
+    assert geo["smem"] == tplan.matmul_smem_bytes(tile, geo["stages"])
+    assert geo["smem"] <= tplan.SMEM_BYTES
+    want_ws = geo["split"] * tiles * tile["i"] * tile["j"]
+    assert geo["workspace"] == (want_ws if geo["split"] > 1 else 0)
+
+
+@pytest.mark.parametrize("m,n,k,split", [(256, 8192, 2048, 1),    # gate/up
+                                         (256, 2048, 8192, 4)])   # down
+def test_matmul_geometry_fills_the_card_at_serving_shapes(m, n, k, split):
+    geo = tplan.matmul_launch_geometry(m, n, k)
+    assert geo["blocks"] >= 120 and geo["split"] == split
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 70, 50), (200, 2048, 8192)])
+def test_matmul_pad_operands_keeps_the_product(m, k, n):
+    """The wrapper's alignment padding: the padded operands' product,
+    sliced to N columns, is the product of the originals."""
+    a = torch.from_numpy(rnd(20, (m, k))).bfloat16()
+    b = torch.from_numpy(rnd(21, (k, n), k ** -0.5)).bfloat16()
+    a_p, b_p = mm.pad_operands(a, b)
+    assert a_p.shape == (m, -(-k // 8) * 8) and b_p.shape == (a_p.shape[1], -(-n // 8) * 8)
+    assert a_p.data_ptr() % 16 == 0 and b_p.data_ptr() % 16 == 0
+    if k % 8 == 0 and n % 8 == 0:
+        assert a_p is a and b_p is b                 # nothing copied
+    assert torch.equal(ref.matmul_ref(a_p, b_p)[:, :n], ref.matmul_ref(a, b))
+
+
+def test_matmul_pad_operands_realigns_an_offset_view():
+    """A contiguous view 2 bytes into its storage is copied to an aligned
+    base; an aligned operand is passed through."""
+    base = torch.from_numpy(rnd(22, (1 + 16 * 8,))).bfloat16()
+    a = base[1:].reshape(16, 8)
+    b = torch.from_numpy(rnd(23, (8, 24))).bfloat16()
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    a_p, b_p = mm.pad_operands(a, b)
+    assert a_p.data_ptr() % 16 == 0 and torch.equal(a_p, a)
+    assert b_p is b
 
 
 @pytest.mark.parametrize("sq,sk,d", ATTN_SHAPES)
@@ -142,7 +206,7 @@ def test_plan_attention_order_matches_reference_and_fits_hopper(sq, sk, d):
 
 
 def test_plan_full_width_tiles():
-    assert tplan.plan_matmul(256, 8192, 2048).tile == {"i": 128, "kk": 128,
+    assert tplan.plan_matmul(256, 8192, 2048).tile == {"i": 128, "kk": 64,
                                                        "j": 128}
     assert tplan.plan_attention(256, 4096, 64).tile == {"q": 128, "kk": 128,
                                                         "d": 64}
