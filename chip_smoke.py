@@ -6,7 +6,8 @@
 Phases, each of which exits nonzero on failure:
 
 1. build — compile ``src/repro_torch/csrc/*.cu`` for ``sm_90a``, and
-   print the matmul kernel's registers and spills (``-Xptxas -v``);
+   print the matmul and flash kernels' registers and spills
+   (``-Xptxas -v``);
 2. kernels — each kernel against its plain PyTorch version on the card
    at the serving paths' shapes, with the tolerance printed beside the
    measured error, and its time beside the plain version's, the one
@@ -17,8 +18,14 @@ Phases, each of which exits nonzero on failure:
    are device times with L2 flushed, the events queued behind a device
    delay so no host latency falls between them (``time_ms``); beside the
    kernel and the library call stands the host's µs per call
-   (``host_us``).  The matmul kernel must give the same bits on two
-   launches with the same inputs;
+   (``host_us``).  The matmul and flash kernels must give the same bits
+   on two launches with the same inputs.  The flash cases include the
+   ragged chunks granite's traffic sends and a qwen3-shape chunk (head
+   dim 128); beside them stand which backend
+   ``scaled_dot_product_attention`` takes for the library call and each
+   backend's time, and, for both kernels, a sweep of the launch geometry
+   at the serving shapes (for flash the ring depth, at head dims 64 and
+   128);
 3. serve — ``granite_3_2b`` at full width in bf16 with seeded random
    weights through ``ContinuousEngine`` (chunk 256, 4 slots, 8 requests of
    256-1024 prompt tokens, 32 new tokens each), with every kernel's launch
@@ -230,30 +237,37 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict) -> floa
 # ---------------------------------------------------------------------------
 
 def phase_build() -> float:
-    """Build the library; meanwhile compile ``matmul.cu`` once more with
-    ``-Xptxas -v`` and print its kernels' registers and spills."""
+    """Build the library; meanwhile compile ``matmul.cu`` and
+    ``flash_attention.cu`` once more with ``-Xptxas -v`` (one nvcc each,
+    started together) and print their kernels' registers and spills."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from repro_torch.kernels import build
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
-    ptxas = subprocess.Popen(
-        [nvcc, *build.CUDA_FLAGS, "-Xptxas", "-v", "-c",
-         str(build.CSRC / "matmul.cu"), "-o", str(build.BUILD_DIR / "ptxas_matmul.o")],
+    ptxas = {src: subprocess.Popen(
+        [nvcc, *build.CUDA_FLAGS, "-Xptxas", "-v", "-c", str(build.CSRC / src),
+         "-o", str(build.BUILD_DIR / f"ptxas_{src[:-3]}.o")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in ("matmul.cu", "flash_attention.cu")}
+    outs = {}
     try:
         build.load_library()
-        out, _ = ptxas.communicate(timeout=600)
+        for src, proc in ptxas.items():
+            outs[src], _ = proc.communicate(timeout=600)
     finally:
-        if ptxas.poll() is None:
-            ptxas.kill()
-            ptxas.wait()
+        for proc in ptxas.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     print(f"[build] csrc/{{{','.join(build.SOURCES)}}} for sm_90a in "
           f"{build.BUILD_SECONDS:.1f} s")
-    require(ptxas.returncode == 0, f"nvcc -Xptxas -v matmul.cu failed:\n{out}")
-    for line in out.splitlines():
-        if "ptxas" in line or "spill" in line:
-            print(f"  {line.strip()}")
+    for src, proc in ptxas.items():
+        require(proc.returncode == 0, f"nvcc -Xptxas -v {src} failed:\n{outs[src]}")
+        print(f"  -Xptxas -v {src}:")
+        for line in outs[src].splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"    {line.strip()}")
     return build.BUILD_SECONDS
 
 
@@ -309,10 +323,18 @@ def phase_matmul(gen: torch.Generator) -> dict:
                                          "library_ms")})
 
 
-# (b, c, kv_len, q_offset): first the serving chunk (one slot, b = 1, at
-# offsets 512 and 768), then the b = 4 cases of earlier runs
-FLASH_CASES = [(1, 256, 1024, 768), (1, 256, 768, 512), (4, 256, 1024, 768),
-               (4, 256, 256, 0), (4, 100, 1000, 900)]
+# (b, c, kv_len, q_offset, h, hkv, d): first granite's serving chunk (one
+# slot, b = 1, at offsets 768 and 512), then the ragged chunks granite's
+# traffic sends (page 128), a qwen3-shape chunk (32 heads over 4 kv heads,
+# head dim 128), and the b = 4 cases of earlier runs
+GRANITE_HEADS = (32, 8, 64)
+FLASH_QWEN3_CASE = (1, 256, 1024, 768, 32, 4, 128)
+FLASH_CASES = [(1, 256, 1024, 768, *GRANITE_HEADS), (1, 256, 768, 512, *GRANITE_HEADS),
+               (1, 44, 384, 256, *GRANITE_HEADS), (1, 128, 640, 512, *GRANITE_HEADS),
+               (1, 132, 1024, 768, *GRANITE_HEADS), (1, 232, 1024, 768, *GRANITE_HEADS),
+               FLASH_QWEN3_CASE, (4, 256, 1024, 768, *GRANITE_HEADS),
+               (4, 256, 256, 0, *GRANITE_HEADS), (4, 100, 1000, 900, *GRANITE_HEADS)]
+FLASH_CACHE_LEN = 1088
 
 
 def sweep_matmul_geometry(gen: torch.Generator) -> None:
@@ -350,32 +372,40 @@ def sweep_matmul_geometry(gen: torch.Generator) -> None:
               f"stages {geo['stages']}, ms: {'; '.join(times)}")
 
 
+def flash_operands(gen: torch.Generator, b, c, kv_len, h, hkv, d):
+    """q, and k/v as page-aligned prefixes of a KV cache, read in place as
+    the serving path reads them."""
+    q = torch.randn((b, c, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    kc = torch.randn((b, FLASH_CACHE_LEN, hkv, d), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    vc = torch.randn((b, FLASH_CACHE_LEN, hkv, d), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    return q, kc[:, :kv_len], vc[:, :kv_len]
+
+
 def phase_flash(gen: torch.Generator) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    from repro_torch.plan import plan_attention
+    from repro_torch.plan import attention_launch_geometry
 
     print("[kernels] flash attention (csrc/flash_attention.cu) vs "
           "ref.flash_attention_ref")
-    h, hkv, d, cache_len = 32, 8, 64, 1088
     cases = []
     worst = 0.0
-    for b, c, kv_len, off in FLASH_CASES:
-        q = torch.randn((b, c, h, d), generator=gen, device="cuda").to(torch.bfloat16)
-        # k/v are page-aligned prefixes of a KV cache, read in place as the
-        # serving path reads them
-        kc = torch.randn((b, cache_len, hkv, d), generator=gen,
-                         device="cuda").to(torch.bfloat16)
-        vc = torch.randn((b, cache_len, hkv, d), generator=gen,
-                         device="cuda").to(torch.bfloat16)
-        k, v = kc[:, :kv_len], vc[:, :kv_len]
-        tile = plan_attention(c, kv_len, d).tile
+    for i, (b, c, kv_len, off, h, hkv, d) in enumerate(FLASH_CASES):
+        q, k, v = flash_operands(gen, b, c, kv_len, h, hkv, d)
+        geo = attention_launch_geometry(c, kv_len, d, b, h, hkv)
         got = fa.flash_attention(q, k, v, causal=True, q_offset=off)
+        again = fa.flash_attention(q, k, v, causal=True, q_offset=off)
         torch.cuda.synchronize()
         want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=off)
         worst = max(worst, compare(
-            f"b·h={b}·{h} hkv={hkv} c={c} kv_len={kv_len} q_offset={off} "
-            f"tiles={tile}", got, want, FA_TOL))
+            f"b·h={b}·{h} hkv={hkv} d={d} c={c} kv_len={kv_len} q_offset={off} "
+            f"rows={geo['rows']} stages={geo['stages']} blocks={geo['blocks']}",
+            got, want, FA_TOL))
+        same = torch.equal(got, again)
+        print(f"    two launches bit-identical: {same}")
+        require(same, f"flash b={b} c={c} kv_len={kv_len} d={d}: two launches differ")
         rows = off + torch.arange(c)
         pairs = int(torch.clamp(rows + 1, max=kv_len).sum()) * b * h
         mask = (off + torch.arange(c, device="cuda")[:, None]
@@ -390,13 +420,22 @@ def phase_flash(gen: torch.Generator) -> dict:
         lib_hus = host_us(lib_fn)
         nbytes = (2 * q.numel() + 2 * b * kv_len * hkv * d) * 2
         bms, by = bound_ms(nbytes, 4.0 * d * pairs)
-        print(f"  time b={b} c={c} kv_len={kv_len} q_offset={off}: kernel "
-              f"{ms:.4f} ms (host {hus:.1f} us/call), plain {plain:.4f} ms, "
+        print(f"  time b={b} h={h}/{hkv} d={d} c={c} kv_len={kv_len} q_offset={off}: "
+              f"kernel {ms:.4f} ms (host {hus:.1f} us/call), plain {plain:.4f} ms, "
               f"scaled_dot_product_attention {lib:.4f} ms (host {lib_hus:.1f} "
               f"us/call), bound {bms:.4f} ms ({by})")
-        cases.append(dict(shape=[b, h, c, kv_len, off], ms=ms, plain_ms=plain,
+        if i == 0:
+            sdpa_backends(qt, kt, vt, mask)
+        cases.append(dict(shape=[b, h, hkv, d, c, kv_len, off], ms=ms, plain_ms=plain,
                           library_ms=lib, bound_ms=bms, bound_by=by, host_us=hus,
                           library_host_us=lib_hus))
+    # the kernel's non-causal route (no model path takes it): correctness only
+    q, k, v = flash_operands(gen, 1, 128, 640, *GRANITE_HEADS)
+    got = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    worst = max(worst, compare("non-causal b·h=1·32 c=128 kv_len=640", got,
+                               ref.flash_attention_ref(q, k, v, causal=False), FA_TOL))
+    sweep_flash_geometry(gen)
     first = cases[0]
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
@@ -404,6 +443,84 @@ def phase_flash(gen: torch.Generator) -> dict:
                 max_abs_err=worst, cases=cases,
                 **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms")})
+
+
+def sdpa_backends(qt, kt, vt, mask) -> None:
+    """Which backend ``scaled_dot_product_attention`` picks for the
+    boolean-mask GQA call that ``library_ms`` times, and each backend's
+    time when it is forced (``sdpa_kernel``), or why it refuses."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    choice = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, attn_mask=mask,
+                                                enable_gqa=True)).name
+    parts = []
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def fn(be=be):
+            with sdpa_kernel(be):
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                      enable_gqa=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                fn()
+                torch.cuda.synchronize()
+            except RuntimeError:
+                # PyTorch warns once per backend it rules out; keep the
+                # reasons, not the headers or the backends disabled by
+                # the forcing itself
+                why = [" ".join(str(w.message).split()).split(" (Triggered internally")[0]
+                       for w in caught]
+                why = [w[:160] for w in why
+                       if not w.endswith("because:") and "runtime disabled" not in w]
+                parts.append(f"{be.name} refuses ({' | '.join(why) or 'no reason given'})")
+                continue
+        parts.append(f"{be.name} {time_ms(fn, cover=be != SDPBackend.MATH):.4f} ms")
+    print(f"  scaled_dot_product_attention backend for the default call: {choice}; "
+          f"forced: {'; '.join(parts)}")
+
+
+def sweep_flash_geometry(gen: torch.Generator) -> None:
+    """The first serving shape and the qwen3-shape chunk at every ring
+    depth that fits a block's shared memory, beside the plan's choice
+    (``plan.attention_launch_geometry``): the evidence for that choice on
+    this card.  Each depth is held against the plain version and to the
+    same bits on two launches.  Launched through
+    ``flash_attention.launch``, so the wrapper's launch count does not
+    move."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.plan import (SMEM_BYTES, attention_launch_geometry,
+                                  attention_launch_smem)
+
+    for b, c, kv_len, off, h, hkv, d in (FLASH_CASES[0], FLASH_QWEN3_CASE):
+        q, k, v = flash_operands(gen, b, c, kv_len, h, hkv, d)
+        want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=off).float()
+        geo = attention_launch_geometry(c, kv_len, d, b, h, hkv)
+        times = []
+        for stages in (2, 3, 4):
+            if attention_launch_smem(d, stages) > SMEM_BYTES:
+                continue
+            out = torch.empty_like(q)
+            again = torch.empty_like(q)
+
+            def run(o=out, stages=stages):
+                fa.launch(q, k, v, o, off, True, stages)
+            run()
+            run(again)
+            torch.cuda.synchronize()
+            err = (out.float() - want).abs()
+            require(bool((err <= FA_TOL["atol"] + FA_TOL["rtol"] * want.abs()).all()),
+                    f"flash sweep d {d} stages {stages}: max_abs_err "
+                    f"{float(err.max()):.3e} outside FA_TOL")
+            require(torch.equal(out, again),
+                    f"flash sweep d {d} stages {stages}: two launches differ")
+            times.append(f"stages {stages} {time_ms(run):.4f}")
+        print(f"  geometry sweep b·h {b}·{h} d {d} c {c} kv_len {kv_len} q_offset {off} "
+              f"(every point within FA_TOL, bit-identical on two launches), plan "
+              f"stages {geo['stages']}, ms: {'; '.join(times)}")
 
 
 def ssm_operands(gen: torch.Generator, b: int, s: int, di: int, st: int,

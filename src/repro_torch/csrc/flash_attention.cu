@@ -1,12 +1,12 @@
 // Causal flash attention (online softmax) for Hopper, bf16 in and out.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention.py (`_kernel`,
-// `flash_attention`): a (b·h, q_blocks, k_blocks) grid with the k axis
-// innermost, the running max, sum and accumulator in f32 VMEM scratch,
-// blocks wholly above the (offset) diagonal skipped, and `q_offset` a
-// runtime scalar so one compiled kernel serves every prefill chunk.  Here
-// one block owns BQ query rows of one (batch, head) and loops over the kv
-// tiles itself; the f32 state stays in registers.
+// Replaces the TPU kernel src/repro/kernels/flash_attention.py (`_kernel`
+// l.31-68, `flash_attention` l.71-114): a (b·h, q_blocks, k_blocks) grid
+// with the k axis innermost, the running max, sum and accumulator in f32
+// VMEM scratch, blocks wholly above the (offset) diagonal skipped, and
+// `q_offset` a runtime scalar so one compiled kernel serves every prefill
+// chunk.  Here a block owns BQ query rows of one (batch, head) and loops
+// over its kv tiles itself; the f32 state stays in registers.
 //
 // Layout: q (b, sq, h, d) and out (b, sq, h, d); k and v (b, kv, hkv, d),
 // each addressed through its own strides with d contiguous, so the kernel
@@ -14,209 +14,361 @@
 // kv head h / rep (GQA) directly: the repeat the TPU wrapper materializes
 // (ops.py:36-39) is never built.
 //
-// Each warp owns 16 query rows and computes with mma.sync m16n8k16 (bf16 in,
-// f32 accumulate): S = Q·Kᵀ for a BK-wide kv tile in registers, scale and
-// mask (causal against q_offset + row, and the ragged kv_len edge, with the
-// reference's −1e30), the online-softmax update in f32 (row max and sum
-// reduced over the four threads that share a row), then O += P·V with P
-// rounded to bf16 as the tensor cores take it.  Output is
-// acc / max(l, 1e−30).  Kv tiles past the causal diagonal of the block's
-// last row, and past kv_len, are never loaded.
-//
-// What bounds it on an H100: at the serving path's chunk (4·32 heads, 256
+// What bounds it on an H100: at the serving chunk (one slot: b·h 1·32, 256
 // query rows at offset 768 over a 1024-row prefix, d = 64) the causal work
-// is 7.5 GFLOP of tensor-core products (7.6 µs at 989 TFLOP/s) against
-// 16.8 MB of q, k, v and out (5.0 µs at 3.35 TB/s): operations bound it,
-// narrowly.  Reading kv head h/rep in place keeps k and v at their GQA size
-// (4× less than the repeated copy) and the four query heads of a group hit
-// the same kv tiles in L2.  The softmax runs on CUDA cores between the two
-// products; overlapping them (FlashAttention-3's ping-pong with wgmma) and
-// TMA loads are later work.
+// is 7.34 M (q, k) pairs, 1.88 GFLOP of tensor-core products (1.90 µs at
+// 989 TFLOP/s), against 4.19 MB of q, k, v and out (1.25 µs at 3.35 TB/s):
+// operations bound it.  At this size, though, a block walks at most 8 kv
+// tiles, so launch, the first loads and the pipeline's fill set a floor far
+// above the bound; the design is about keeping every SM busy from the
+// first microsecond:
+//
+// * Enough blocks at one slot.  A block has one consumer warpgroup of
+//   BQ = 64 query rows; at b·h 1·32, c 256 that gives 128 blocks on 132
+//   SMs.  repro_torch.plan.attention_launch_geometry picks the ring depth.
+// * Loads off the critical path.  One producer warp keeps TMA loads of K
+//   and V tiles (BK = 128 kv rows) in flight in a ring of `stages` slots,
+//   each guarded by a full and an empty mbarrier.  K and V are read through
+//   4-D tensor maps (d, hkv, kv, b) over the cache's own strides, encoded
+//   once per cache prefix and cached (hopper.cuh); rows past kv_len arrive
+//   as zeros and are masked.  Q is a new tensor every call, so it is not
+//   given a tensor map: the warpgroup copies its 64 rows once with
+//   cp.async while the first K/V tiles are on their way, and each warp
+//   keeps its 16 rows as register fragments for the whole run.  Kv tiles
+//   past the causal diagonal of the block's last row, and past kv_len, are
+//   never loaded.
+// * wgmma for both products, bf16 in, f32 accumulate.  S = Q·Kᵀ is
+//   m64n128k16 with Q from registers and K K-major in 128-byte-swizzled
+//   shared memory (d contiguous, imm-trans-b = 0).  O += P·V is m64n{d}k16
+//   with P from registers (the S accumulators rounded to bf16 in place, as
+//   the tensor cores take them; the accumulator layout of S is the A
+//   fragment layout of the next product) and V MN-major (d contiguous,
+//   imm-trans-b = 1), as the matmul kernel reads its weight.
+// * The softmax off the tensor cores' critical path.  With one warpgroup
+//   per SM nothing else hides its latency, so each step starts S_t and
+//   P_{t−1}·V_{t−1} together and runs tile t's softmax while P·V is on the
+//   tensor cores (FlashAttention-3's intra-warpgroup pipelining; its
+//   ping-pong of two warpgroups would need two query tiles per SM, which
+//   one slot does not have).  The softmax: the mask (causal against
+//   q_offset + row, and the ragged kv_len edge; only on tiles that reach
+//   the diagonal or the edge), the online update in f32 in the log2
+//   domain, one FFMA and one ex2 per score, the row max and sum in four
+//   independent chains and then over the four threads that share a row.
+//   A masked score is −∞ here where the reference writes −1e30: the two
+//   differ only for a row with every column masked, which no query row
+//   has (column 0 is always visible).  Output is acc / max(l, 1e−30).
+//
+// Head dims 64 and 128 (one or two 64-column swizzle atoms per row); other
+// head dims return -1.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace {
 
+using namespace hopper;
+
 constexpr float kNegInf = -1e30f;   // flash_attention.py:28
+constexpr int BK = 128;             // kv rows per tile: the n of S = Q·Kᵀ
+constexpr int kAtom = 64;           // bf16 columns of one 128-byte swizzle row
+constexpr int kAlign = 1024;        // swizzle atom: slot alignment
+constexpr int kMaxSmem = 232448;    // shared memory a block may use on H100
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online-softmax step of one kv tile on a thread's S accumulators
+// (rows pos0 and pos0 + 8, columns col0 + 8j (+1)): where `edge`, mask
+// columns past kv_len or past the row's position to −∞; the running row
+// max m (log2 domain, scaled) over the four threads that share a row;
+// P = 2^(S·scale − m) in place, one FFMA and one ex2 per score; l updated
+// as a per-thread partial sum; alpha, the factor by which O is rescaled.
+// A row with every column masked so far keeps m = −1e30, P = 0.  Maxima
+// and sums run in four independent chains per row.
+template <int SN>
+__device__ __forceinline__ void softmax_tile(float (&sacc)[SN], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], bool edge, int col0,
+                                             int pos0, int kv_len, int causal,
+                                             float scale_log2) {
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < SN / 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = col0 + 8 * j + (e & 1);
+        const int pos = pos0 + (e >> 1) * 8;
+        if (col >= kv_len || (causal && col > pos)) sacc[4 * j + e] = -INFINITY;
+      }
+    }
+  }
+  float mr[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) mr[i][0] = mr[i][1] = mr[i][2] = mr[i][3] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < SN / 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mr[e >> 1][j & 3] = fmaxf(mr[e >> 1][j & 3], sacc[4 * j + e]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = fmaxf(fmaxf(mr[i][0], mr[i][1]), fmaxf(mr[i][2], mr[i][3]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float mnew = fmaxf(m[i], mx * scale_log2);
+    alpha[i] = ex2(m[i] - mnew);
+    m[i] = mnew;
+  }
+  float rs[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) rs[i][0] = rs[i][1] = rs[i][2] = rs[i][3] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < SN / 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(fmaf(sacc[4 * j + e], scale_log2, -m[e >> 1]));
+      sacc[4 * j + e] = p;
+      rs[e >> 1][j & 3] += p;
+    }
+  }
+  // l stays a per-thread partial sum (the four threads of a row scale it
+  // by the same alpha); it is reduced over the row once, at the end
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    l[i] = l[i] * alpha[i] + ((rs[i][0] + rs[i][1]) + (rs[i][2] + rs[i][3]));
+}
+
+// Start S = Q·Kᵀ for one tile on the tensor cores (not waited for): Q from registers, K
+// K-major at `kt`; a k16 step is 32 bytes along a swizzled row, the second
+// 64 columns of d (D = 128) are the next BK·128 bytes.
+template <int D>
+__device__ __forceinline__ void mma_s(float (&sacc)[BK / 2], const uint32_t (&qf)[D / 16][4],
+                                      const uint8_t* kt) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    wgmma_rs<BK, 0>(sacc, qf[ks], desc_sw128(kt + (ks / 4) * BK * 128 + (ks % 4) * 32, 16, 1024),
+                    ks > 0);
+  wgmma_commit();
+}
+
+// Start O += P·V for one tile on the tensor cores (not waited for): P from registers, V
+// MN-major at `vt`; a k16 step is 16 rows of 128 bytes, the 64-column
+// atoms of d are BK·128 bytes apart.
+template <int D>
+__device__ __forceinline__ void mma_pv(float (&o)[D / 2], const uint32_t (&pf)[BK / 16][4],
+                                       const uint8_t* vt) {
+#pragma unroll
+  for (int kc = 0; kc < BK / 16; ++kc)
+    wgmma_rs<D, 1>(o, pf[kc], desc_sw128(vt + kc * 16 * 128, BK * 128, 1024), 1);
+  wgmma_commit();
 }
 
 struct Strides {
   long long b, s, h;   // elements; d is contiguous
 };
 
-template <int D, int BK>
-__global__ void __launch_bounds__(256)
-    flash_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
-                 const bf16* __restrict__ V, bf16* __restrict__ O, int H, int rep,
-                 int sq, int kv_len, int q_offset, int causal, float scale_log2,
-                 Strides qs, Strides ks, Strides vs, Strides os) {
-  constexpr int LD = D + kPad;
-  constexpr int NT = BK / 8;    // n8 tiles of S
-  constexpr int KC = D / 16;    // k16 chunks of the QKᵀ product
-  constexpr int DT = D / 8;     // n8 tiles of O
-  const int nwarps = blockDim.x / 32;
-  const int BQ = nwarps * 16;
+constexpr int BQ = 64;            // query rows of a block: one consumer warpgroup
+constexpr int kConsumers = 128;
+constexpr int kThreads = kConsumers + 32;  // + one producer warp
 
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BQ * LD;
-  bf16* sV = sK + BK * LD;
+template <int D>
+struct Geometry {
+  static constexpr uint32_t kTileBytes = BK * D * 2;      // one K or V tile
+  static constexpr uint32_t kSlotBytes = 2 * kTileBytes;  // K, then V
+  static constexpr int kQLd = D + kPad;                   // padded Q row
+  static constexpr size_t kQBytes = size_t(BQ) * kQLd * 2;
+  // slack to align the ring to the swizzle atom; the ring; Q; two mbarriers
+  // per slot
+  static size_t smem_bytes(int stages) {
+    return kAlign + size_t(stages) * kSlotBytes + kQBytes + 2 * stages * sizeof(uint64_t);
+  }
+};
+
+// grid (ceil(sq/BQ), B·H); a block walks the kv tiles its rows can see.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_kernel(const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v, const bf16* __restrict__ Q,
+                 bf16* __restrict__ O, int H, int rep, int sq, int kv_len, int q_offset,
+                 int causal, float scale_log2, Strides qs, Strides os, int stages) {
+  using G = Geometry<D>;
+  constexpr int KS = D / 16;    // k16 steps of S = Q·Kᵀ
+  constexpr int PS = BK / 16;   // k16 steps of O += P·V
+  constexpr int SN = BK / 2;    // S accumulators per thread
+  constexpr int ON = D / 2;     // O accumulators per thread
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) & ~uintptr_t(kAlign - 1));
+  bf16* sQ = reinterpret_cast<bf16*>(ring + size_t(stages) * G::kSlotBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(sQ) + G::kQBytes);
+  uint64_t* empty = full + stages;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;       // row within the warp's 16 (and +8)
-  const int t = lane % 4;       // column pair within an n8 tile
-
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
   const int hk = h / rep;
   const int q0 = blockIdx.x * BQ;
 
-  const bf16* Qb = Q + b * qs.b + h * qs.h;
-  const bf16* Kb = K + b * ks.b + hk * ks.h;
-  const bf16* Vb = V + b * vs.b + hk * vs.h;
-  bf16* Ob = O + b * os.b + h * os.h;
-
-  load_tile(sQ, Qb, qs.s, sq, D, q0, 0, BQ, D, tid, blockDim.x);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  uint32_t qf[KC][4];
-  {
-    const bf16* base = sQ + (warp * 16) * LD;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      const bf16* p = base + kc * 16 + 2 * t;
-      qf[kc][0] = *reinterpret_cast<const uint32_t*>(p + g * LD);
-      qf[kc][1] = *reinterpret_cast<const uint32_t*>(p + (g + 8) * LD);
-      qf[kc][2] = *reinterpret_cast<const uint32_t*>(p + g * LD + 8);
-      qf[kc][3] = *reinterpret_cast<const uint32_t*>(p + (g + 8) * LD + 8);
-    }
-  }
-
-  float o[DT][4];
-#pragma unroll
-  for (int dn = 0; dn < DT; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.0f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.0f, 0.0f};
-  const int pos0 = q_offset + q0 + warp * 16 + g;   // sequence position of row g
-  const int pos1 = pos0 + 8;
-
-  // kv tiles that hold any column this block's rows may see
+  // kv tiles that hold any column this block's rows may see (at least one:
+  // column 0 is visible to every row)
   const int last_pos = q_offset + min(q0 + BQ, sq) - 1;
   const int kv_end = causal ? min(kv_len, last_pos + 1) : kv_len;
   const int ntiles = (kv_end + BK - 1) / BK;
 
-  for (int kb = 0; kb < ntiles; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();   // every warp is done with the previous tile
-    load_tile(sK, Kb, ks.s, kv_len, D, k0, 0, BK, D, tid, blockDim.x);
-    load_tile(sV, Vb, vs.s, kv_len, D, k0, 0, BK, D, tid, blockDim.x);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    // S = Q·Kᵀ (16 × BK per warp)
-    float s[NT][4];
+  if (tid >= kConsumers) {
+    // producer warp: one lane keeps the ring loading
+    if (tid == kConsumers) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < ntiles; ++t) {
+        mbar_wait(&empty[s], phase ^ 1);
+        uint8_t* slot = ring + size_t(s) * G::kSlotBytes;
+        mbar_arrive_expect_tx(&full[s], G::kSlotBytes);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-      const bf16* kp = sK + (nt * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp + kc * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + kc * 16 + 8);
-        mma_bf16_16816(s[nt], qf[kc], b0, b1);
+        for (int a = 0; a < D / kAtom; ++a) {
+          tma_load_4d(slot + a * BK * 128, &map_k, &full[s], a * kAtom, hk, t * BK, b);
+          tma_load_4d(slot + G::kTileBytes + a * BK * 128, &map_v, &full[s], a * kAtom, hk,
+                      t * BK, b);
+        }
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1;
+        }
       }
     }
-
-    // scale (log2 domain), mask, and the running row max
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        const int pos = (e < 2) ? pos0 : pos1;
-        const bool ok = col < kv_len && (!causal || col <= pos);
-        const float x = ok ? s[nt][e] * scale_log2 : kNegInf;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      alpha[i] = exp2f(m[i] - mx[i]);
-      m[i] = mx[i];
-    }
-    float rs[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - m[e >> 1]);
-        s[nt][e] = p;
-        rs[e >> 1] += p;
-      }
-    }
-    // l stays a per-thread partial sum (all four threads of a row scale it
-    // by the same alpha); it is reduced over the row once, at the end
-    l[0] = l[0] * alpha[0] + rs[0];
-    l[1] = l[1] * alpha[1] + rs[1];
-#pragma unroll
-    for (int dn = 0; dn < DT; ++dn) {
-      o[dn][0] *= alpha[0];
-      o[dn][1] *= alpha[0];
-      o[dn][2] *= alpha[1];
-      o[dn][3] *= alpha[1];
-    }
-
-    // O += P·V: the S accumulators of two n8 tiles are the A fragment
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t a[4];
-      a[0] = pack_f32(s[2 * kc][0], s[2 * kc][1]);
-      a[1] = pack_f32(s[2 * kc][2], s[2 * kc][3]);
-      a[2] = pack_f32(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      a[3] = pack_f32(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-      const bf16* vp = sV + (kc * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int dn = 0; dn < DT; ++dn) {
-        const bf16* v = vp + dn * 8;
-        const uint32_t b0 = pack_bf16(v[0], v[LD]);
-        const uint32_t b1 = pack_bf16(v[8 * LD], v[9 * LD]);
-        mma_bf16_16816(o[dn], a, b0, b1);
-      }
-    }
+    __syncwarp();
+    return;
   }
 
+  // a consumer thread's place: warp w owns block rows [16w, 16w+16);
+  // acc[4j..4j+3] sit at rows row, row, row+8, row+8 and columns
+  // 8j + 2·t4 (+1)
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int row = warp * 16 + g;
+  float o[ON];
+#pragma unroll
+  for (int i = 0; i < ON; ++i) o[i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+
+  // the block's 64 Q rows (zeros past sq), copied while the first K/V
+  // tiles are on their way, then held as register fragments
+  load_tile(sQ, Q + b * qs.b + h * qs.h, qs.s, sq, D, q0, 0, BQ, D, tid, kConsumers);
+  cp_async_commit();
+  cp_async_wait<0>();
+  named_barrier_sync(1, kConsumers);
+  uint32_t qf[KS][4];
+  {
+    const bf16* p0 = sQ + row * G::kQLd + 2 * t4;
+#pragma unroll
+    for (int kc = 0; kc < KS; ++kc) {
+      const bf16* p = p0 + kc * 16;
+      qf[kc][0] = *reinterpret_cast<const uint32_t*>(p);
+      qf[kc][1] = *reinterpret_cast<const uint32_t*>(p + 8 * G::kQLd);
+      qf[kc][2] = *reinterpret_cast<const uint32_t*>(p + 8);
+      qf[kc][3] = *reinterpret_cast<const uint32_t*>(p + 8 * G::kQLd + 8);
+    }
+  }
+  const int pos0 = q_offset + q0 + row;   // sequence positions of the rows
+  const int first_pos = q_offset + q0;
+  float sacc[SN];
+  uint32_t pf[PS][4];   // P of the previous tile, the A operand of P·V
+
+  // Tile t: S_t = Q·K_tᵀ and O += P_{t−1}·V_{t−1} go to the tensor cores
+  // together; the softmax of S_t runs while P·V does; then O is rescaled
+  // and P_t packed for the next tile.  Slot t−1 is released once its
+  // P·V is done, so the ring needs two slots at least.  The first tile
+  // has no P·V before it, the last one's comes after the loop.  Both are
+  // outside the loop, and P is fenced before every wgmma.fence, because
+  // otherwise the compiler moves P's packing past the fence and ptxas
+  // inserts a wgmma wait that serializes the softmax behind P·V.
+  auto softmax_of = [&](int t, float (&alpha)[2]) {
+    const int k0 = t * BK;
+    softmax_tile(sacc, m, l, alpha, k0 + BK > kv_len || (causal && k0 + BK - 1 > first_pos),
+                 k0 + 2 * t4, pos0, kv_len, causal, scale_log2);
+  };
+  auto pack = [&]() {
+    // the S accumulators of n8 slices 2kc and 2kc+1, rounded to bf16,
+    // are the A fragment of k step kc
+#pragma unroll
+    for (int kc = 0; kc < PS; ++kc) {
+      pf[kc][0] = pack_bf16x2(sacc[8 * kc], sacc[8 * kc + 1]);
+      pf[kc][1] = pack_bf16x2(sacc[8 * kc + 2], sacc[8 * kc + 3]);
+      pf[kc][2] = pack_bf16x2(sacc[8 * kc + 4], sacc[8 * kc + 5]);
+      pf[kc][3] = pack_bf16x2(sacc[8 * kc + 6], sacc[8 * kc + 7]);
+    }
+  };
+  int s = 0;
+  uint32_t phase = 0;
+  auto next = [&]() {
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1;
+    }
+  };
+  mbar_wait(&full[s], phase);
+  __syncwarp();  // wgmma is .aligned: each warp enters it converged
+  fence_regs(sacc);
+  wgmma_fence();
+  mma_s<D>(sacc, qf, ring + size_t(s) * G::kSlotBytes);
+  wgmma_wait<0>();
+  fence_regs(sacc);
+  float alpha[2];
+  softmax_of(0, alpha);   // O is still zero: no rescale
+  pack();
+  int prev = s;
+  next();
+  for (int t = 1; t < ntiles; ++t) {
+    mbar_wait(&full[s], phase);
+    __syncwarp();
+    fence_regs(sacc);
+    fence_regs(o);
+    fence_regs(pf);
+    wgmma_fence();
+    mma_s<D>(sacc, qf, ring + size_t(s) * G::kSlotBytes);
+    mma_pv<D>(o, pf, ring + size_t(prev) * G::kSlotBytes + G::kTileBytes);
+    wgmma_wait<1>();   // S_t is done; P·V may still run
+    fence_regs(sacc);
+    softmax_of(t, alpha);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pf);
+    if (tid == 0) mbar_arrive(&empty[prev]);
+#pragma unroll
+    for (int i = 0; i < ON; ++i) o[i] *= alpha[(i >> 1) & 1];
+    pack();
+    prev = s;
+    next();
+  }
+  fence_regs(o);
+  fence_regs(pf);
+  wgmma_fence();
+  mma_pv<D>(o, pf, ring + size_t(prev) * G::kSlotBytes + G::kTileBytes);
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_regs(pf);
+  if (tid == 0) mbar_arrive(&empty[prev]);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -224,46 +376,52 @@ __global__ void __launch_bounds__(256)
   }
   const float inv0 = 1.0f / fmaxf(l[0], 1e-30f);
   const float inv1 = 1.0f / fmaxf(l[1], 1e-30f);
-  const int r0 = q0 + warp * 16 + g;
+  const int r0 = q0 + row;
   const int r1 = r0 + 8;
+  bf16* Ob = O + b * os.b + h * os.h;
 #pragma unroll
-  for (int dn = 0; dn < DT; ++dn) {
-    const int col = dn * 8 + 2 * t;
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t4;
     if (r0 < sq)
       *reinterpret_cast<__nv_bfloat162*>(Ob + r0 * os.s + col) =
-          __floats2bfloat162_rn(o[dn][0] * inv0, o[dn][1] * inv0);
+          __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
     if (r1 < sq)
       *reinterpret_cast<__nv_bfloat162*>(Ob + r1 * os.s + col) =
-          __floats2bfloat162_rn(o[dn][2] * inv1, o[dn][3] * inv1);
+          __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
   }
-}
-
-template <int D, int BK>
-int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H,
-           int rep, int sq, int kv_len, int q_offset, int causal, int BQ,
-           Strides qs, Strides ks, Strides vs, Strides os, cudaStream_t stream) {
-  const size_t smem = size_t(BQ + 2 * BK) * (D + kPad) * sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  const float scale_log2 = 1.4426950408889634f / sqrtf(float(D));
-  dim3 grid((sq + BQ - 1) / BQ, B * H);
-  flash_kernel<D, BK><<<grid, (BQ / 16) * 32, smem, stream>>>(
-      q, k, v, o, H, rep, sq, kv_len, q_offset, causal, scale_log2, qs, ks, vs, os);
-  return int(cudaGetLastError());
 }
 
 template <int D>
-int launch_d(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H,
-             int rep, int sq, int kv_len, int q_offset, int causal, int BQ, int BK,
-             Strides qs, Strides ks, Strides vs, Strides os, cudaStream_t stream) {
-  switch (BK) {
-    case 16: return launch<D, 16>(q, k, v, o, B, H, rep, sq, kv_len, q_offset, causal, BQ, qs, ks, vs, os, stream);
-    case 32: return launch<D, 32>(q, k, v, o, B, H, rep, sq, kv_len, q_offset, causal, BQ, qs, ks, vs, os, stream);
-    case 64: return launch<D, 64>(q, k, v, o, B, H, rep, sq, kv_len, q_offset, causal, BQ, qs, ks, vs, os, stream);
-    case 128: return launch<D, 128>(q, k, v, o, B, H, rep, sq, kv_len, q_offset, causal, BQ, qs, ks, vs, os, stream);
-  }
-  return -1;
+int launch(const CUtensorMap& map_k, const CUtensorMap& map_v, const bf16* q, bf16* o,
+           int B, int H, int rep, int sq, int kv_len, int q_offset, int causal, int stages,
+           Strides qs, Strides os, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return int(attr);
+  // the loop holds slot t−1 while it waits on slot t: two slots at least
+  const size_t smem = Geometry<D>::smem_bytes(stages);
+  if (stages < 2 || smem > size_t(kMaxSmem)) return -1;
+  const float scale_log2 = 1.4426950408889634f / sqrtf(float(D));
+  const dim3 grid((sq + BQ - 1) / BQ, B * H);
+  flash_kernel<D><<<grid, kThreads, smem, stream>>>(map_k, map_v, q, o, H, rep, sq, kv_len,
+                                                    q_offset, causal, scale_log2, qs, os,
+                                                    stages);
+  return int(cudaGetLastError());
+}
+
+// The 4-D map (d, hkv, kv, b) of a k or v prefix, read in boxes of one
+// 64-column swizzle atom × BK rows of one (batch, kv head).  The stride of
+// a dimension of size 1 is never used; it is set to the natural one, so a
+// view whose unused stride is odd still encodes.
+bool kv_map(const void* p, int B, int HKV, int kv_len, int D, long long sb, long long ss,
+            long long sh, CUtensorMap* out) {
+  if (HKV == 1) sh = D;
+  if (kv_len == 1) ss = sh * HKV;
+  if (B == 1) sb = ss * kv_len;
+  const uint64_t dims[4] = {uint64_t(D), uint64_t(HKV), uint64_t(kv_len), uint64_t(B)};
+  const uint64_t strides[3] = {uint64_t(sh) * 2, uint64_t(ss) * 2, uint64_t(sb) * 2};
+  const uint32_t box[4] = {uint32_t(kAtom), 1, uint32_t(BK), 1};
+  return tensor_map(p, 4, dims, strides, box, out);
 }
 
 }  // namespace
@@ -271,36 +429,40 @@ int launch_d(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H,
 
 extern "C" {
 
-// q, out: (B, sq, H, D); k, v: (B, kv, H/rep, D), strides in elements.
-// Returns 0 on success, a cudaError_t code if the launch was refused, and
-// -1 for a head size or tile the kernel is not instantiated for.
-int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                               int B, int H, int HKV, int sq, int kv_len, int D,
-                               int q_offset, int causal, int BQ, int BK,
-                               long long qsb, long long qss, long long qsh,
-                               long long ksb, long long kss, long long ksh,
-                               long long vsb, long long vss, long long vsh,
-                               long long osb, long long oss, long long osh,
-                               void* stream) {
+// q, out: (B, sq, H, D); k, v: (B, kv_len, H/rep, D), strides in elements;
+// `stages` K/V slots in the load ring.  Returns 0 on success, a cudaError_t
+// code if the launch was refused, -1 for a head size or ring the kernel is
+// not built for (or k, v not 16-byte aligned with strides that are
+// multiples of 8, or a negative q_offset), and -2 if a TMA tensor map could
+// not be encoded.
+int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                               int H, int HKV, int sq, int kv_len, int D, int q_offset,
+                               int causal, int stages, long long qsb, long long qss,
+                               long long qsh, long long ksb, long long kss, long long ksh,
+                               long long vsb, long long vss, long long vsh, long long osb,
+                               long long oss, long long osh, void* stream) {
   using repro::bf16;
   using repro::Strides;
-  if (HKV <= 0 || H % HKV) return -1;
-  if (BQ < 16 || BQ > 128 || BQ % 16) return -1;
+  if (B < 1 || sq < 1 || kv_len < 1 || q_offset < 0 || HKV <= 0 || H % HKV) return -1;
+  if (D != 64 && D != 128) return -1;
+  for (long long st : {ksb, kss, ksh, vsb, vss, vsh})
+    if (st < 0 || st % 8) return -1;
+  if ((reinterpret_cast<uintptr_t>(k) & 15) || (reinterpret_cast<uintptr_t>(v) & 15))
+    return -1;
+  CUtensorMap map_k, map_v;
+  if (!repro::kv_map(k, B, HKV, kv_len, D, ksb, kss, ksh, &map_k) ||
+      !repro::kv_map(v, B, HKV, kv_len, D, vsb, vss, vsh, &map_v))
+    return -2;
   const int rep = H / HKV;
-  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
-      os{osb, oss, osh};
+  const Strides qs{qsb, qss, qsh}, os{osb, oss, osh};
   const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return repro::launch_d<16>(qp, kp, vp, op, B, H, rep, sq, kv_len, q_offset, causal, BQ, BK, qs, ks, vs, os, s);
-    case 32: return repro::launch_d<32>(qp, kp, vp, op, B, H, rep, sq, kv_len, q_offset, causal, BQ, BK, qs, ks, vs, os, s);
-    case 64: return repro::launch_d<64>(qp, kp, vp, op, B, H, rep, sq, kv_len, q_offset, causal, BQ, BK, qs, ks, vs, os, s);
-    case 128: return repro::launch_d<128>(qp, kp, vp, op, B, H, rep, sq, kv_len, q_offset, causal, BQ, BK, qs, ks, vs, os, s);
-  }
-  return -1;
+  if (D == 128)
+    return repro::launch<128>(map_k, map_v, qp, op, B, H, rep, sq, kv_len, q_offset, causal,
+                              stages, qs, os, s);
+  return repro::launch<64>(map_k, map_v, qp, op, B, H, rep, sq, kv_len, q_offset, causal,
+                           stages, qs, os, s);
 }
 
 }  // extern "C"

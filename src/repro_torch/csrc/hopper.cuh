@@ -1,6 +1,7 @@
-// Hopper building blocks shared by the port's kernels: mbarriers, TMA tile
-// loads, wgmma shared-memory descriptors and the m64n128k16 bf16 product,
-// and on the host a cache of TMA tensor maps.  Inline PTX only (no CuTe),
+// Hopper building blocks shared by the port's kernels: mbarriers, 2-D and
+// 4-D TMA tile loads, wgmma shared-memory descriptors, the m64n128k16 bf16
+// product from shared memory and the m64n{64,128}k16 products with A from
+// registers, and on the host a cache of TMA tensor maps.  Inline PTX only (no CuTe),
 // so a source that includes this builds in seconds.  sm_90a.
 #pragma once
 
@@ -88,6 +89,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same for a 4-D map, coordinates innermost first.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // Sync the first `threads` threads of the block on named barrier `id`
 // (0 is __syncthreads's).
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
@@ -134,6 +147,16 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The same for register A operands, which an asynchronous wgmma may still
+// be reading: fenced after its wait, they stay live (and unmoved) until then.
+template <int R, int C>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
 // d[64×128] += A[64×16] · B[16×128], bf16 in, f32 accumulate, both
 // operands from shared memory: A K-major, B MN-major (transposed, imm-trans-b
 // = 1).  Thread t of the warpgroup holds, for n8 slice j, d[4j..4j+3] at
@@ -176,6 +199,90 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_tn(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// d[64×N] (+)= A[64×16] · B[16×N] with A from registers: a[0..3] hold, for
+// warp w of the warpgroup and lane l, A's rows 16w + l/4 (a[0], a[2]) and
+// +8 (a[1], a[3]) at columns 2·(l%4) (+1) (a[0], a[1]) and +8 (a[2], a[3]),
+// bf16 pairs, as mma.sync m16n8k16 lays out its A fragment.  B from shared
+// memory through `desc_b`: K-major with TRANS_B = 0, MN-major with 1.
+// `accumulate` = 0 overwrites d.  d's layout is the one above.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(float (&d)[32],
+                                                        const uint32_t (&a)[4],
+                                                        uint64_t desc_b,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_rs(float (&d)[64],
+                                                         const uint32_t (&a)[4],
+                                                         uint64_t desc_b,
+                                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(TRANS_B));
+}
+
+// d[64×N] (+)= A·B for N = 64 or 128, the register-A product above.
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  if constexpr (N == 64)
+    wgmma_m64n64k16_bf16_rs<TRANS_B>(d, a, desc_b, accumulate);
+  else
+    wgmma_m64n128k16_bf16_rs<TRANS_B>(d, a, desc_b, accumulate);
+}
+
 // ---------------------------------------------------------------------------
 // host: TMA tensor maps
 // ---------------------------------------------------------------------------
@@ -199,34 +306,53 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The tensor map of a row-major bf16 matrix (rows × cols, row stride cols)
-// read in boxes of box_rows × box_cols with 128-byte swizzle, zeros outside
-// the matrix.  A map depends on nothing but these six numbers, so maps are
-// cached by them: a hit is always right, and a weight's map is encoded once.
-// `cols` must be a multiple of 8 (TMA takes 16-byte row strides) and `ptr`
-// 16-byte aligned.  Returns false if the map cannot be encoded.
-inline bool tensor_map_2d(const void* ptr, uint64_t rows, uint64_t cols,
-                          uint32_t box_rows, uint32_t box_cols, CUtensorMap* out) {
+// The tensor map of a bf16 tensor of `rank` (≤ 5) dimensions, innermost
+// first: `dims` elements, `strides` the byte strides of dimensions 1.. (the
+// innermost is contiguous), read in boxes of `box` elements with 128-byte
+// swizzle (box[0] · 2 ≤ 128), zeros outside the tensor.  A map depends on
+// nothing but these numbers, so maps are cached by them: a hit is always
+// right, and a weight's or a KV cache's map is encoded once.  Strides must
+// be multiples of 16 bytes and `ptr` 16-byte aligned.  Returns false if the
+// map cannot be encoded.
+inline bool tensor_map(const void* ptr, int rank, const uint64_t* dims,
+                       const uint64_t* strides, const uint32_t* box, CUtensorMap* out) {
   struct Key {
     const void* ptr;
-    uint64_t rows, cols;
-    uint32_t box_rows, box_cols;
+    int rank;
+    uint64_t dims[5], strides[4];
+    uint32_t box[5];
     bool operator==(const Key& o) const {
-      return ptr == o.ptr && rows == o.rows && cols == o.cols &&
-             box_rows == o.box_rows && box_cols == o.box_cols;
+      if (ptr != o.ptr || rank != o.rank) return false;
+      for (int i = 0; i < 5; ++i)
+        if (dims[i] != o.dims[i] || box[i] != o.box[i]) return false;
+      for (int i = 0; i < 4; ++i)
+        if (strides[i] != o.strides[i]) return false;
+      return true;
     }
   };
   struct Hash {
     size_t operator()(const Key& k) const {
-      size_t h = std::hash<const void*>()(k.ptr);
-      for (uint64_t v : {k.rows, k.cols, uint64_t(k.box_rows) << 32 | k.box_cols})
+      size_t h = std::hash<const void*>()(k.ptr) ^ size_t(k.rank);
+      auto mix = [&h](uint64_t v) {
         h ^= std::hash<uint64_t>()(v) + 0x9e3779b97f4a7c15ull + (h << 6) + (h >> 2);
+      };
+      for (int i = 0; i < 5; ++i) mix(k.dims[i] ^ (uint64_t(k.box[i]) << 48));
+      for (int i = 0; i < 4; ++i) mix(k.strides[i]);
       return h;
     }
   };
+  if (rank < 1 || rank > 5) return false;
+  Key key;
+  std::memset(&key, 0, sizeof(Key));  // unused entries compare equal
+  key.ptr = ptr;
+  key.rank = rank;
+  for (int i = 0; i < rank; ++i) {
+    key.dims[i] = dims[i];
+    key.box[i] = box[i];
+    if (i + 1 < rank) key.strides[i] = strides[i];
+  }
   static std::mutex mu;
   static std::unordered_map<Key, CUtensorMap, Hash> cache;
-  const Key key{ptr, rows, cols, box_rows, box_cols};
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it != cache.end()) {
@@ -235,13 +361,17 @@ inline bool tensor_map_2d(const void* ptr, uint64_t rows, uint64_t cols,
   }
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
-  cuuint64_t dims[2] = {cols, rows};
-  cuuint64_t strides[1] = {cols * sizeof(__nv_bfloat16)};
-  cuuint32_t box[2] = {box_cols, box_rows};
-  cuuint32_t elem_strides[2] = {1, 1};
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], elem_strides[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    elem_strides[i] = 1;
+    if (i + 1 < rank) s[i] = strides[i];
+  }
   CUtensorMap map;
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-             strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cuuint32_t(rank),
+             const_cast<void*>(ptr), d, s, b, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
@@ -249,6 +379,16 @@ inline bool tensor_map_2d(const void* ptr, uint64_t rows, uint64_t cols,
   cache.emplace(key, map);
   std::memcpy(out, &map, sizeof(CUtensorMap));
   return true;
+}
+
+// The tensor map of a row-major bf16 matrix (rows × cols, row stride cols)
+// read in boxes of box_rows × box_cols.  `cols` must be a multiple of 8.
+inline bool tensor_map_2d(const void* ptr, uint64_t rows, uint64_t cols,
+                          uint32_t box_rows, uint32_t box_cols, CUtensorMap* out) {
+  const uint64_t dims[2] = {cols, rows};
+  const uint64_t strides[1] = {cols * sizeof(__nv_bfloat16)};
+  const uint32_t box[2] = {box_cols, box_rows};
+  return tensor_map(ptr, 2, dims, strides, box, out);
 }
 
 }  // namespace hopper

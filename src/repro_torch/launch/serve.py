@@ -39,9 +39,9 @@ import torch
 
 from ..configs.registry import get_arch
 from ..model import transformer as T
-from ..model.kernel_mode import kernel_mode
+from ..model.kernel_mode import KernelMode, kernel_mode
 from ..model.layers import device_of, make_generator
-from ..plan import plan_attention, plan_matmul, plan_scan_gate
+from ..plan import ATTN_HEAD_DIMS, plan_attention, plan_matmul, plan_scan_gate
 
 
 @dataclass
@@ -135,6 +135,8 @@ class ContinuousEngine:
         # kernel_opts: extra KernelMode fields (threshold overrides for
         # small-shape parity tests; see model/kernel_mode.py)
         self._mode_kw = dict(enabled=use_kernels, **(kernel_opts or {}))
+        if use_kernels:
+            check_flash_head_dim(cfg, dev, chunk, KernelMode(**self._mode_kw).min_attn_q)
         # paged-KV geometry from the plan: the attention plan's kk tile
         # is the unit the flash kernel streams, so pages align with
         # kernel tiles
@@ -365,6 +367,20 @@ class ContinuousEngine:
         busy = max(self.ticks_decode + self.ticks_prefill
                    - self.ticks_overlap, 1)
         return self.ticks_overlap / busy
+
+
+def check_flash_head_dim(cfg, device: torch.device, chunk: int, min_attn_q: int) -> None:
+    """Kernel mode on the card sends prefill chunks of ``min_attn_q`` rows
+    or more to the flash kernel, which is built for the head dims in
+    ``ATTN_HEAD_DIMS`` only: refuse any other when the engine is made,
+    not at its first such chunk.  On the CPU the kernels' plain versions
+    run at every head dim."""
+    attends = any(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    if (device.type == "cuda" and attends and chunk >= min_attn_q
+            and cfg.hd not in ATTN_HEAD_DIMS):
+        raise ValueError(f"{cfg.name}: head dim {cfg.hd} has no flash kernel (built for "
+                         f"{ATTN_HEAD_DIMS}); serve with --chunk below {min_attn_q}, "
+                         f"without --kernels, or on the CPU")
 
 
 def warm_kernel_plans(cfg, max_len: int, chunk: int = 16) -> None:

@@ -31,9 +31,11 @@ lanes (``akg.py:38-40``):
   are launch geometry of the card, not part of the tile:
   :func:`matmul_launch_geometry`;
 * attention: ``d`` whole (a thread's row of the output spans the head),
-  ``q`` and ``kk`` powers of two in [16, 128] (the kernel's score tile is
-  a register array sized at compile time); Q, K and V tiles fit shared
-  memory;
+  ``q`` and ``kk`` powers of two in [16, 128]; Q, K and V tiles fit
+  shared memory.  The serving engine sizes its KV pages by ``kk``.  How
+  ``csrc/flash_attention.cu`` (TMA and wgmma) launches on the card — 64
+  query rows per block, 128 kv rows per tile and the depth of the load
+  ring — is launch geometry: :func:`attention_launch_geometry`;
 * the two scans: ``n`` whole (the reference pins it, ``akg.py:344-346``;
   the state lanes of one channel are neighbouring threads of one warp and
   reduce by shuffles), ``d`` fills a thread block of ``SCAN_THREADS``
@@ -63,6 +65,11 @@ MATMUL_STAGES = 5              # depth of the TMA load ring
 MATMUL_ALIGN = 1024            # the ring's alignment slack (swizzle atom)
 MATMUL_EPI_PAD = 8             # f32 row padding of the staged tile
 POW2 = (16, 32, 64, 128)
+ATTN_ROWS = 64                 # query rows of a block: one consumer warpgroup
+ATTN_BK = 128                  # kv rows per tile: the n of S = Q·Kᵀ
+ATTN_HEAD_DIMS = (64, 128)     # head dims csrc/flash_attention.cu is built for
+ATTN_STAGES = 3                # depth of the K/V load ring
+ATTN_ALIGN = 1024              # the ring's alignment slack (swizzle atom)
 SCAN_THREADS = 512             # threads of a scan block: d tile × state
 WARP = 32
 
@@ -157,6 +164,40 @@ def matmul_launch_geometry(m: int, n: int, k: int) -> Dict[str, int]:
     workspace = split * tiles * tile["i"] * tile["j"] if split > 1 else 0
     return {"split": split, "stages": stages, "blocks": tiles * split,
             "smem": matmul_smem_bytes(tile, stages), "workspace": workspace}
+
+
+def attention_launch_smem(d: int, stages: int) -> int:
+    """Dynamic shared memory of one flash block (``Geometry::smem_bytes``
+    in ``csrc/flash_attention.cu``): the alignment slack, ``stages`` slots
+    of a bf16 K and V tile, the padded Q rows and two mbarriers per
+    stage."""
+    return ATTN_ALIGN + stages * 2 * ATTN_BK * d * 2 + ATTN_ROWS * (d + PAD) * 2 + 16 * stages
+
+
+@functools.lru_cache(maxsize=256)
+def attention_launch_geometry(sq: int, sk: int, d: int, b: int, h: int,
+                              hkv: int) -> Dict[str, int]:
+    """How ``csrc/flash_attention.cu`` launches causal attention of ``sq``
+    query rows over ``sk`` kv rows, ``b``·``h`` heads (``hkv`` kv heads),
+    head dim ``d``, on an H100: one block per :data:`ATTN_ROWS` query rows
+    of a head (128 blocks for one slot's 256-row chunk at 32 heads), each
+    walking its kv tiles of :data:`ATTN_BK` rows.  ``stages``: the ring
+    depth, :data:`ATTN_STAGES` or fewer if a block's shared memory would
+    not fit, but at least 2 (the kernel holds one tile's V while the next
+    tile's K arrives; ``chip_smoke.py``'s geometry sweep times each
+    depth).  Also returns ``rows``, ``bk``, ``blocks`` and ``smem`` (bytes
+    per block).  Raises ``ValueError`` for a head dim the kernel is not
+    built for.
+    """
+    if d not in ATTN_HEAD_DIMS or h % hkv:
+        raise ValueError(f"flash kernel: head dim {d} (built for "
+                         f"{ATTN_HEAD_DIMS}), heads {h}/{hkv}")
+    stages = ATTN_STAGES
+    while attention_launch_smem(d, stages) > SMEM_BYTES and stages > 2:
+        stages -= 1
+    return {"rows": ATTN_ROWS, "bk": ATTN_BK, "stages": stages,
+            "blocks": b * h * -(-sq // ATTN_ROWS),
+            "smem": attention_launch_smem(d, stages)}
 
 
 @functools.lru_cache(maxsize=64)

@@ -210,3 +210,39 @@ def test_plan_full_width_tiles():
                                                        "j": 128}
     assert tplan.plan_attention(256, 4096, 64).tile == {"q": 128, "kk": 128,
                                                         "d": 64}
+
+
+# ---------------------------------------------------------------------------
+# flash launch geometry
+# ---------------------------------------------------------------------------
+
+# the chunk rows and page-aligned kv prefixes granite's serving traffic
+# sends (chunk 256, page 128), at one slot and at four
+FLASH_GEOMETRY = [(c, kv, d, b) for c in (44, 128, 132, 232, 256)
+                  for kv in (384, 640, 768, 1024) for d in (64, 128)
+                  for b in (1, 4)]
+
+
+@pytest.mark.parametrize("c,kv,d,b", FLASH_GEOMETRY)
+def test_attention_launch_geometry_fits_hopper(c, kv, d, b):
+    h, hkv = 32, (8 if d == 64 else 4)
+    geo = tplan.attention_launch_geometry(c, kv, d, b, h, hkv)
+    assert geo["rows"] == tplan.ATTN_ROWS and geo["bk"] == tplan.ATTN_BK
+    assert geo["smem"] == tplan.attention_launch_smem(d, geo["stages"])
+    assert geo["smem"] <= tplan.SMEM_BYTES          # fits 227 KB
+    assert geo["stages"] >= 2                       # loads overlap compute
+    assert geo["blocks"] == b * h * -(-c // geo["rows"])
+
+
+@pytest.mark.parametrize("kv,d", [(1024, 64), (768, 64), (1024, 128)])
+def test_attention_geometry_fills_the_card_at_one_slot(kv, d):
+    """The serving chunk at one slot (b·h 1·32, c 256) launches at least
+    128 blocks on the 132 SMs."""
+    geo = tplan.attention_launch_geometry(256, kv, d, 1, 32, 8 if d == 64 else 4)
+    assert geo["blocks"] >= 128
+
+
+@pytest.mark.parametrize("d", [16, 32, 256])
+def test_attention_geometry_refuses_unbuilt_head_dims(d):
+    with pytest.raises(ValueError):
+        tplan.attention_launch_geometry(256, 1024, d, 1, 32, 8)

@@ -265,6 +265,32 @@ def test_page_size_from_plan():
     assert tserve.ContinuousEngine(TCFG, weights()[1], 1, 64, page=8).page == 8
 
 
+@pytest.mark.parametrize("arch,device,chunk,refused", [
+    ("smoke", "cuda", 32, True),      # head dim 16: no flash kernel on the card
+    ("smoke", "cuda", 16, False),     # chunks below min_attn_q never reach it
+    ("smoke", "cpu", 32, False),      # the plain version takes every head dim
+    ("granite", "cuda", 256, False),  # head dim 64
+    ("falcon", "cuda", 256, False),   # no attention layers
+])
+def test_kernel_mode_refuses_head_dims_without_a_flash_kernel(arch, device, chunk,
+                                                              refused):
+    cfg = {"smoke": TCFG, "granite": get_arch("granite_3_2b"),
+           "falcon": get_arch("falcon_mamba_7b").smoke()}[arch]
+    check = functools.partial(tserve.check_flash_head_dim, cfg, torch.device(device),
+                              chunk, kernel_mode.KernelMode().min_attn_q)
+    if refused:
+        with pytest.raises(ValueError, match="no flash kernel"):
+            check()
+    else:
+        check()
+
+
+def test_engine_in_kernel_mode_on_cpu_takes_any_head_dim():
+    eng = tserve.ContinuousEngine(TCFG, weights()[1], 1, 64, chunk=32,
+                                  use_kernels=True)
+    assert eng.chunk == 32
+
+
 def test_serve_main_runs_on_cpu(capsys):
     tserve.main(["--smoke", "--device", "cpu", "--kernels", "--batch", "2",
                  "--prompt-len", "20", "--gen", "3", "--chunk", "16"])
