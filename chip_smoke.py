@@ -19,13 +19,14 @@ Phases, each of which exits nonzero on failure:
    delay so no host latency falls between them (``time_ms``); beside the
    kernel and the library call stands the host's µs per call
    (``host_us``).  The matmul and flash kernels must give the same bits
-   on two launches with the same inputs.  The flash cases include the
-   ragged chunks granite's traffic sends and a qwen3-shape chunk (head
-   dim 128); beside them stand which backend
-   ``scaled_dot_product_attention`` takes for the library call and each
-   backend's time, and, for both kernels, a sweep of the launch geometry
-   at the serving shapes (for flash the ring depth, at head dims 64 and
-   128);
+   on two launches with the same inputs.  The matmul cases include
+   gemma3's MLP shapes; the flash cases the ragged chunks granite's and
+   gemma3's traffic send (head dims 64 and 256), a qwen3-shape chunk
+   (head dim 128) and a gemma3 chunk over a 1536-row prefix; beside them
+   stand which backend ``scaled_dot_product_attention`` takes for the
+   library call and each backend's time, and, for both kernels, a sweep
+   of the launch geometry at the serving shapes (for flash the ring
+   depth, at head dims 64, 128 and 256);
 3. serve — ``granite_3_2b`` at full width in bf16 with seeded random
    weights through ``ContinuousEngine`` (chunk 256, 4 slots, 8 requests of
    256-1024 prompt tokens, 32 new tokens each), with every kernel's launch
@@ -36,7 +37,15 @@ Phases, each of which exits nonzero on failure:
 4. serve — the same for ``falcon_mamba_7b`` at full width and depth
    (64 Mamba layers, d_model 4096), after granite's engine and weights
    are freed.  Every prefill chunk of that traffic has 32 rows or more,
-   so every chunk tick launches the scan+gate kernel once per layer.
+   so every chunk tick launches the scan+gate kernel once per layer;
+5. serve — the same for ``gemma3_4b`` at full width and depth (34
+   layers, head dim 256, a 1024-token window on the 29 local layers),
+   after falcon's engine and weights are freed.  Its 5 global layers
+   send every chunk to the flash kernel (local layers take the plain
+   windowed path, as in the reference), so flash launches are 5 per
+   chunk tick; the chunk-step check runs a 1536-token prompt and
+   compares the chunk at offset 1280 as well, where the window cuts the
+   local layers' prefix and flash reads 1536 kv rows.
 
 The selective-scan kernel runs on no model path (the reference's
 non-fused Mamba route is plain jnp), so phase 2 alone launches it.
@@ -275,7 +284,9 @@ MM_CASES = [(256, 2048, 8192), (256, 8192, 2048), (200, 2048, 8192),
             (37, 70, 50),
             # K a multiple of neither the split x kk (256) nor kk: the last
             # split's last k tile is ragged
-            (256, 8160, 2048)]
+            (256, 8160, 2048),
+            # gemma3's MLP: gate/up and down of a full chunk
+            (256, 2560, 10240), (256, 10240, 2560)]
 
 
 def phase_matmul(gen: torch.Generator) -> dict:
@@ -326,15 +337,23 @@ def phase_matmul(gen: torch.Generator) -> dict:
 # (b, c, kv_len, q_offset, h, hkv, d): first granite's serving chunk (one
 # slot, b = 1, at offsets 768 and 512), then the ragged chunks granite's
 # traffic sends (page 128), a qwen3-shape chunk (32 heads over 4 kv heads,
-# head dim 128), and the b = 4 cases of earlier runs
+# head dim 128), and the b = 4 cases of earlier runs; then the same chunks
+# at gemma3's global-layer heads (8 over 4 kv heads, head dim 256), and its
+# chunk at offset 1280 over a 1536-row prefix (past the local window)
 GRANITE_HEADS = (32, 8, 64)
+GEMMA3_HEADS = (8, 4, 256)
 FLASH_QWEN3_CASE = (1, 256, 1024, 768, 32, 4, 128)
+FLASH_GEMMA3_CASE = (1, 256, 1024, 768, *GEMMA3_HEADS)
 FLASH_CASES = [(1, 256, 1024, 768, *GRANITE_HEADS), (1, 256, 768, 512, *GRANITE_HEADS),
                (1, 44, 384, 256, *GRANITE_HEADS), (1, 128, 640, 512, *GRANITE_HEADS),
                (1, 132, 1024, 768, *GRANITE_HEADS), (1, 232, 1024, 768, *GRANITE_HEADS),
                FLASH_QWEN3_CASE, (4, 256, 1024, 768, *GRANITE_HEADS),
-               (4, 256, 256, 0, *GRANITE_HEADS), (4, 100, 1000, 900, *GRANITE_HEADS)]
-FLASH_CACHE_LEN = 1088
+               (4, 256, 256, 0, *GRANITE_HEADS), (4, 100, 1000, 900, *GRANITE_HEADS),
+               FLASH_GEMMA3_CASE, (1, 256, 768, 512, *GEMMA3_HEADS),
+               (1, 44, 384, 256, *GEMMA3_HEADS), (1, 128, 640, 512, *GEMMA3_HEADS),
+               (1, 132, 1024, 768, *GEMMA3_HEADS), (1, 232, 1024, 768, *GEMMA3_HEADS),
+               (4, 256, 1024, 768, *GEMMA3_HEADS), (1, 256, 1536, 1280, *GEMMA3_HEADS)]
+FLASH_CACHE_LEN = 1600
 
 
 def sweep_matmul_geometry(gen: torch.Generator) -> None:
@@ -424,7 +443,7 @@ def phase_flash(gen: torch.Generator) -> dict:
               f"kernel {ms:.4f} ms (host {hus:.1f} us/call), plain {plain:.4f} ms, "
               f"scaled_dot_product_attention {lib:.4f} ms (host {lib_hus:.1f} "
               f"us/call), bound {bms:.4f} ms ({by})")
-        if i == 0:
+        if i == 0 or FLASH_CASES[i] == FLASH_GEMMA3_CASE:
             sdpa_backends(qt, kt, vt, mask)
         cases.append(dict(shape=[b, h, hkv, d, c, kv_len, off], ms=ms, plain_ms=plain,
                           library_ms=lib, bound_ms=bms, bound_by=by, host_us=hus,
@@ -483,11 +502,11 @@ def sdpa_backends(qt, kt, vt, mask) -> None:
 
 
 def sweep_flash_geometry(gen: torch.Generator) -> None:
-    """The first serving shape and the qwen3-shape chunk at every ring
-    depth that fits a block's shared memory, beside the plan's choice
-    (``plan.attention_launch_geometry``): the evidence for that choice on
-    this card.  Each depth is held against the plain version and to the
-    same bits on two launches.  Launched through
+    """The first serving shape, the qwen3-shape chunk and gemma3's chunk
+    at every ring depth that fits a block's shared memory, beside the
+    plan's choice (``plan.attention_launch_geometry``): the evidence for
+    that choice on this card.  Each depth is held against the plain
+    version and to the same bits on two launches.  Launched through
     ``flash_attention.launch``, so the wrapper's launch count does not
     move."""
     from repro_torch.kernels import flash_attention as fa
@@ -495,7 +514,8 @@ def sweep_flash_geometry(gen: torch.Generator) -> None:
     from repro_torch.plan import (SMEM_BYTES, attention_launch_geometry,
                                   attention_launch_smem)
 
-    for b, c, kv_len, off, h, hkv, d in (FLASH_CASES[0], FLASH_QWEN3_CASE):
+    for b, c, kv_len, off, h, hkv, d in (FLASH_CASES[0], FLASH_QWEN3_CASE,
+                                         FLASH_GEMMA3_CASE):
         q, k, v = flash_operands(gen, b, c, kv_len, h, hkv, d)
         want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=off).float()
         geo = attention_launch_geometry(c, kv_len, d, b, h, hkv)
@@ -667,17 +687,23 @@ def describe(cfg) -> str:
         return (f"{cfg.n_layers} Mamba layers, d_model {cfg.d_model}, d_inner "
                 f"{cfg.d_inner}, ssm_state {cfg.ssm_state}, dt_rank {cfg.dt_rank_}, "
                 f"conv {cfg.conv_width}")
-    return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+    text = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
             f"{cfg.n_kv_heads} kv, head_dim {cfg.hd}, d_ff {cfg.d_ff}")
+    if cfg.sliding_window:
+        n_global = sum(cfg.is_global_attn_layer(i) for i in range(cfg.n_layers))
+        text += (f", window {cfg.sliding_window} on {cfg.n_layers - n_global} local "
+                 f"layers, {n_global} global")
+    return text
 
 
-def phase_serve(gpu: str, arch: str, path_kernels,
-                relative_logits: bool = False) -> dict:
+def phase_serve(gpu: str, arch: str, path_kernels, relative_logits: bool = False,
+                check_offsets=(SERVE_CHUNK,)) -> dict:
     """Serve SERVE_PLENS through ``arch`` at full width; returns the launch
     count of every kernel in that run.  ``path_kernels``: the kernels the
     path must have launched; ``relative_logits``: hold the chunk step's
     kernels-vs-plain logits to bounds relative to the plain path's own
-    distance from f32 (see LOGIT_VS_F32)."""
+    distance from f32 (see LOGIT_VS_F32); ``check_offsets``: the chunks
+    whose logits ``check_chunk_step`` compares."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch.serve import ContinuousEngine, Request
     from repro_torch.model import transformer as T
@@ -726,6 +752,19 @@ def phase_serve(gpu: str, arch: str, path_kernels,
         require(launches["scan_gate"] == want,
                 f"scan_gate launches {launches['scan_gate']}, expected {want} "
                 f"({cfg.n_layers} layers x {eng.ticks_prefill} chunk ticks)")
+    if "flash_attention" in path_kernels:
+        # every chunk of this traffic has >= min_attn_q rows; windowed
+        # layers take the plain path, as the reference's do
+        full = sum(spec.mixer == "attn" and spec.window == 0 for spec in T.layer_specs(cfg))
+        want = full * eng.ticks_prefill
+        require(launches["flash_attention"] == want,
+                f"flash launches {launches['flash_attention']}, expected {want} "
+                f"({full} full-attention layers x {eng.ticks_prefill} chunk ticks)")
+    if "matmul" in path_kernels:
+        # full chunks clear min_matmul_rows; ragged ones take plain matmuls
+        full_chunks = sum(n // SERVE_CHUNK for n in SERVE_PLENS)
+        print(f"  matmul launches {launches['matmul']} (expected {full_chunks} full chunks "
+              f"x {cfg.n_layers} layers x 3 = {full_chunks * cfg.n_layers * 3})")
     ntok = SERVE_GEN * len(reqs)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  {len(reqs)} requests, prompts {list(SERVE_PLENS)}, {ntok} new "
@@ -738,7 +777,13 @@ def phase_serve(gpu: str, arch: str, path_kernels,
     print(f"  first tokens: {[r.generated[:4] for r in reqs[:3]]}")
     print(f"  card: {gpu}")
 
-    check_chunk_step(cfg, params, prompts[0], max_len, relative_logits)
+    # a longer prompt (drawn after the served ones) where the checked
+    # chunks reach past the served prompts
+    check_len = max(check_offsets) + SERVE_CHUNK
+    toks = prompts[0] if check_len <= SERVE_PLENS[0] else torch.randint(
+        2, cfg.vocab, (1, check_len), generator=gen, device="cuda")
+    check_chunk_step(cfg, params, toks, max(max_len, check_len + 64), relative_logits,
+                     check_offsets)
     profile_steps(cfg, params, max_len)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  {cfg.name} phase peak device memory {peak:.2f} GiB")
@@ -809,25 +854,40 @@ def _kernel_name(key: str) -> str:
     return name.split("(")[0].split("::")[-1]
 
 
-def check_chunk_step(cfg, params, toks, max_len, relative: bool) -> None:
-    """The prompt's first two chunks (offsets 0 and 256) through
-    ``chunk_step`` three ways — with the kernels, with plain torch ops,
-    and with plain ops on f32 copies of the weights — and the second
-    chunk's logits compared."""
+def check_chunk_step(cfg, params, toks, max_len, relative: bool,
+                     offsets=(SERVE_CHUNK,)) -> None:
+    """The prompt's chunks from offset 0 up to the last of ``offsets``
+    through ``chunk_step`` three ways — with the kernels, with plain torch
+    ops, and with plain ops on f32 copies of the weights — and the logits
+    of the chunk at each of ``offsets`` compared."""
     from repro_torch.model import transformer as T
     from repro_torch.model.kernel_mode import kernel_mode
 
     def run(cfg_, params_, kernels):
         cache = T.init_cache(cfg_, 1, max_len, "cuda")
+        logits = {}
         with kernel_mode(enabled=kernels):
-            T.chunk_step(params_, cfg_, toks[:, :256], cache, 0, 256)
-            lg, _ = T.chunk_step(params_, cfg_, toks[:, 256:512], cache, 256, 512)
-        return lg.float()
+            for off in range(0, max(offsets) + 1, SERVE_CHUNK):
+                # only the logits are kept: a returned Mamba state may be a
+                # view of the whole chunk's f32 states
+                lg = T.chunk_step(params_, cfg_, toks[:, off:off + SERVE_CHUNK], cache,
+                                  off, off + SERVE_CHUNK)[0]
+                if off in offsets:
+                    logits[off] = lg.float()
+                del lg
+        return logits
 
-    kern = run(cfg, params, True)
-    plain = run(cfg, params, False)
-    f32 = run(cfg.scaled(dtype="float32"), _to_f32(params), False)
+    kerns = run(cfg, params, True)
+    plains = run(cfg, params, False)
+    f32s = run(cfg.scaled(dtype="float32"), _to_f32(params), False)
     torch.cuda.synchronize()
+    for off in offsets:
+        compare_logits(off, kerns[off], plains[off], f32s[off], relative)
+
+
+def compare_logits(off: int, kern, plain, f32, relative: bool) -> None:
+    """One chunk's logits with the kernels against the plain bf16 path and
+    against the f32 run (see LOGIT_RMS_TOL and LOGIT_VS_F32)."""
     require(bool(torch.isfinite(kern).all()), "chunk_step: non-finite logits")
 
     def rms(x):
@@ -843,7 +903,7 @@ def check_chunk_step(cfg, params, toks, max_len, relative: bool) -> None:
     else:
         rms_tol, max_tol = LOGIT_RMS_TOL, LOGIT_MAX_TOL
     ok = rel <= rms_tol and worst <= max_tol and e_kern <= LOGIT_VS_F32 * e_plain
-    print(f"  chunk_step logits {tuple(kern.shape)} at offset 256, kernels vs "
+    print(f"  chunk_step logits {tuple(kern.shape)} at offset {off}, kernels vs "
           f"plain bf16: rms_rel={rel:.3e} (tol {rms_tol:.3e}) max_abs_err="
           f"{worst:.3e} (tol {max_tol:.3e}); vs f32: kernels rms_rel="
           f"{e_kern:.3e}, plain rms_rel={e_plain:.3e} (tol {LOGIT_VS_F32}x), "
@@ -892,11 +952,13 @@ def main() -> int:
         granite = phase_serve(gpu, "granite_3_2b", ("matmul", "flash_attention"))
         falcon = phase_serve(gpu, "falcon_mamba_7b", ("scan_gate",),
                              relative_logits=True)
+        gemma3 = phase_serve(gpu, "gemma3_4b", ("matmul", "flash_attention"),
+                             check_offsets=(SERVE_CHUNK, 1280))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     for rec in records:
-        rec["launches"] = granite[rec["name"]] + falcon[rec["name"]]
+        rec["launches"] = sum(run[rec["name"]] for run in (granite, falcon, gemma3))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cases")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

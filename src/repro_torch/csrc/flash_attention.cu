@@ -14,32 +14,40 @@
 // kv head h / rep (GQA) directly: the repeat the TPU wrapper materializes
 // (ops.py:36-39) is never built.
 //
-// What bounds it on an H100: at the serving chunk (one slot: b·h 1·32, 256
-// query rows at offset 768 over a 1024-row prefix, d = 64) the causal work
-// is 7.34 M (q, k) pairs, 1.88 GFLOP of tensor-core products (1.90 µs at
-// 989 TFLOP/s), against 4.19 MB of q, k, v and out (1.25 µs at 3.35 TB/s):
-// operations bound it.  At this size, though, a block walks at most 8 kv
+// What bounds it on an H100: at granite's serving chunk (one slot: b·h
+// 1·32, 256 query rows at offset 768 over a 1024-row prefix, d = 64) the
+// causal work is 7.34 M (q, k) pairs, 1.88 GFLOP of tensor-core products
+// (1.90 µs at 989 TFLOP/s), against 4.19 MB of q, k, v and out (1.25 µs at
+// 3.35 TB/s): operations bound it; gemma3's global-layer chunk (b·h 1·8
+// over 4 kv heads, d = 256) does the same 1.88 GFLOP over 6.3 MB.  At these
+// sizes, though, a block walks at most 8 (d ≤ 128) or 16 (d = 256) kv
 // tiles, so launch, the first loads and the pipeline's fill set a floor far
 // above the bound; the design is about keeping every SM busy from the
 // first microsecond:
 //
 // * Enough blocks at one slot.  A block has one consumer warpgroup of
 //   BQ = 64 query rows; at b·h 1·32, c 256 that gives 128 blocks on 132
-//   SMs.  repro_torch.plan.attention_launch_geometry picks the ring depth.
+//   SMs (gemma3's 8 heads give 32).  repro_torch.plan.attention_launch_geometry
+//   picks the ring depth.
 // * Loads off the critical path.  One producer warp keeps TMA loads of K
-//   and V tiles (BK = 128 kv rows) in flight in a ring of `stages` slots,
-//   each guarded by a full and an empty mbarrier.  K and V are read through
+//   and V tiles (BK = 128 kv rows at d ≤ 128, 64 at d = 256, so that a K+V
+//   slot stays at 64 KB) in flight in a ring of `stages` slots, each
+//   guarded by a full and an empty mbarrier.  K and V are read through
 //   4-D tensor maps (d, hkv, kv, b) over the cache's own strides, encoded
 //   once per cache prefix and cached (hopper.cuh); rows past kv_len arrive
 //   as zeros and are masked.  Q is a new tensor every call, so it is not
 //   given a tensor map: the warpgroup copies its 64 rows once with
-//   cp.async while the first K/V tiles are on their way, and each warp
-//   keeps its 16 rows as register fragments for the whole run.  Kv tiles
-//   past the causal diagonal of the block's last row, and past kv_len, are
-//   never loaded.
+//   cp.async while the first K/V tiles are on their way.  At d ≤ 128 each
+//   warp then keeps its 16 rows as register fragments for the whole run;
+//   at d = 256 those fragments (64 registers a thread) would not fit beside
+//   O's 128 f32 accumulators, so Q stays in shared memory, written in the
+//   128-byte-swizzled K-major layout TMA gives K, and is read as wgmma's A
+//   operand through a descriptor.  Kv tiles past the causal diagonal of the
+//   block's last row, and past kv_len, are never loaded.
 // * wgmma for both products, bf16 in, f32 accumulate.  S = Q·Kᵀ is
-//   m64n128k16 with Q from registers and K K-major in 128-byte-swizzled
-//   shared memory (d contiguous, imm-trans-b = 0).  O += P·V is m64n{d}k16
+//   m64n{BK}k16 with K K-major in 128-byte-swizzled shared memory (d
+//   contiguous, imm-trans-b = 0) and Q from registers (d ≤ 128) or from
+//   shared memory (d = 256).  O += P·V is m64n{d}k16
 //   with P from registers (the S accumulators rounded to bf16 in place, as
 //   the tensor cores take them; the accumulator layout of S is the A
 //   fragment layout of the next product) and V MN-major (d contiguous,
@@ -58,8 +66,8 @@
 //   differ only for a row with every column masked, which no query row
 //   has (column 0 is always visible).  Output is acc / max(l, 1e−30).
 //
-// Head dims 64 and 128 (one or two 64-column swizzle atoms per row); other
-// head dims return -1.
+// Head dims 64, 128 and 256 (one, two or four 64-column swizzle atoms per
+// row); other head dims return -1.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -69,10 +77,33 @@ namespace {
 using namespace hopper;
 
 constexpr float kNegInf = -1e30f;   // flash_attention.py:28
-constexpr int BK = 128;             // kv rows per tile: the n of S = Q·Kᵀ
 constexpr int kAtom = 64;           // bf16 columns of one 128-byte swizzle row
 constexpr int kAlign = 1024;        // swizzle atom: slot alignment
 constexpr int kMaxSmem = 232448;    // shared memory a block may use on H100
+constexpr int BQ = 64;              // query rows of a block: one consumer warpgroup
+constexpr int kConsumers = 128;
+constexpr int kThreads = kConsumers + 32;  // + one producer warp
+
+template <int D>
+struct Geometry {
+  static_assert(D == 64 || D == 128 || D == 256, "built for head dims 64, 128, 256");
+  // kv rows per tile, the n of S = Q·Kᵀ: at d = 256 a slot of 128-row K
+  // and V tiles would be 128 KB, and two of them would not fit beside Q
+  static constexpr int BK = D > 128 ? 64 : 128;
+  // Q as wgmma's A operand from shared memory (d = 256), in 64-column
+  // swizzle atoms of BQ rows; else a padded row-major staging tile that
+  // the warps read into register fragments
+  static constexpr bool kQSmem = D > 128;
+  static constexpr uint32_t kTileBytes = BK * D * 2;      // one K or V tile
+  static constexpr uint32_t kSlotBytes = 2 * kTileBytes;  // K, then V
+  static constexpr int kQLd = kQSmem ? D : D + kPad;      // Q row (padded)
+  static constexpr size_t kQBytes = size_t(BQ) * kQLd * 2;
+  // slack to align the ring to the swizzle atom; the ring; Q; two mbarriers
+  // per slot
+  static size_t smem_bytes(int stages) {
+    return kAlign + size_t(stages) * kSlotBytes + kQBytes + 2 * stages * sizeof(uint64_t);
+  }
+};
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -149,8 +180,9 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[SN], float (&m)[2], f
 // K-major at `kt`; a k16 step is 32 bytes along a swizzled row, the second
 // 64 columns of d (D = 128) are the next BK·128 bytes.
 template <int D>
-__device__ __forceinline__ void mma_s(float (&sacc)[BK / 2], const uint32_t (&qf)[D / 16][4],
-                                      const uint8_t* kt) {
+__device__ __forceinline__ void mma_s(float (&sacc)[Geometry<D>::BK / 2],
+                                      const uint32_t (&qf)[D / 16][4], const uint8_t* kt) {
+  constexpr int BK = Geometry<D>::BK;
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks)
     wgmma_rs<BK, 0>(sacc, qf[ks], desc_sw128(kt + (ks / 4) * BK * 128 + (ks % 4) * 32, 16, 1024),
@@ -158,37 +190,63 @@ __device__ __forceinline__ void mma_s(float (&sacc)[BK / 2], const uint32_t (&qf
   wgmma_commit();
 }
 
+// The same with Q from shared memory at `sq`, laid out as K is: the 64-column
+// atoms of d are BQ·128 bytes apart (d = 256, BK = 64).
+template <int D>
+__device__ __forceinline__ void mma_s(float (&sacc)[Geometry<D>::BK / 2], const uint8_t* sq,
+                                      const uint8_t* kt) {
+  constexpr int BK = Geometry<D>::BK;
+  static_assert(BK == 64, "the shared-memory Q product is m64n64k16");
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    wgmma_m64n64k16_bf16_ss_kk(sacc, desc_sw128(sq + (ks / 4) * BQ * 128 + (ks % 4) * 32, 16, 1024),
+                               desc_sw128(kt + (ks / 4) * BK * 128 + (ks % 4) * 32, 16, 1024),
+                               ks > 0);
+  wgmma_commit();
+}
+
 // Start O += P·V for one tile on the tensor cores (not waited for): P from registers, V
 // MN-major at `vt`; a k16 step is 16 rows of 128 bytes, the 64-column
 // atoms of d are BK·128 bytes apart.
 template <int D>
-__device__ __forceinline__ void mma_pv(float (&o)[D / 2], const uint32_t (&pf)[BK / 16][4],
+__device__ __forceinline__ void mma_pv(float (&o)[D / 2],
+                                       const uint32_t (&pf)[Geometry<D>::BK / 16][4],
                                        const uint8_t* vt) {
+  constexpr int BK = Geometry<D>::BK;
 #pragma unroll
   for (int kc = 0; kc < BK / 16; ++kc)
     wgmma_rs<D, 1>(o, pf[kc], desc_sw128(vt + kc * 16 * 128, BK * 128, 1024), 1);
   wgmma_commit();
 }
 
+// The block's BQ rows of Q from row q0 of a (rows, D) matrix with row
+// stride `ld` (zeros past `rows`) into shared memory as a K-major wgmma
+// operand with 128-byte swizzle, the layout TMA's SWIZZLE_128B gives K:
+// 64-column atoms of BQ rows × 128 bytes one after another, and the 16-byte
+// chunk c of row r at chunk c ^ (r % 8) of its row.  Neighbouring threads
+// copy neighbouring chunks of a row.
+template <int D>
+__device__ __forceinline__ void load_q_sw128(uint8_t* sq, const bf16* g, long long ld, int rows,
+                                             int q0, int tid) {
+  constexpr int kChunks = D / 8;   // 16-byte chunks of a row
+  for (int idx = tid; idx < BQ * kChunks; idx += kConsumers) {
+    const int r = idx / kChunks;
+    const int c = idx % kChunks;
+    uint8_t* dst = sq + (c / 8) * (BQ * 128) + r * 128 + (((c % 8) ^ (r % 8)) * 16);
+    const bf16* src = g + (long long)(q0 + r) * ld + c * 8;
+    if (q0 + r >= rows) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    } else if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      cp_async16(dst, src);
+    } else {
+      bf16* d = reinterpret_cast<bf16*>(dst);
+      for (int e = 0; e < 8; ++e) d[e] = src[e];
+    }
+  }
+}
+
 struct Strides {
   long long b, s, h;   // elements; d is contiguous
-};
-
-constexpr int BQ = 64;            // query rows of a block: one consumer warpgroup
-constexpr int kConsumers = 128;
-constexpr int kThreads = kConsumers + 32;  // + one producer warp
-
-template <int D>
-struct Geometry {
-  static constexpr uint32_t kTileBytes = BK * D * 2;      // one K or V tile
-  static constexpr uint32_t kSlotBytes = 2 * kTileBytes;  // K, then V
-  static constexpr int kQLd = D + kPad;                   // padded Q row
-  static constexpr size_t kQBytes = size_t(BQ) * kQLd * 2;
-  // slack to align the ring to the swizzle atom; the ring; Q; two mbarriers
-  // per slot
-  static size_t smem_bytes(int stages) {
-    return kAlign + size_t(stages) * kSlotBytes + kQBytes + 2 * stages * sizeof(uint64_t);
-  }
 };
 
 // grid (ceil(sq/BQ), B·H); a block walks the kv tiles its rows can see.
@@ -199,6 +257,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                  bf16* __restrict__ O, int H, int rep, int sq, int kv_len, int q_offset,
                  int causal, float scale_log2, Strides qs, Strides os, int stages) {
   using G = Geometry<D>;
+  constexpr int BK = G::BK;
   constexpr int KS = D / 16;    // k16 steps of S = Q·Kᵀ
   constexpr int PS = BK / 16;   // k16 steps of O += P·V
   constexpr int SN = BK / 2;    // S accumulators per thread
@@ -273,13 +332,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   float l[2] = {0.0f, 0.0f};
 
   // the block's 64 Q rows (zeros past sq), copied while the first K/V
-  // tiles are on their way, then held as register fragments
-  load_tile(sQ, Q + b * qs.b + h * qs.h, qs.s, sq, D, q0, 0, BQ, D, tid, kConsumers);
-  cp_async_commit();
-  cp_async_wait<0>();
-  named_barrier_sync(1, kConsumers);
-  uint32_t qf[KS][4];
-  {
+  // tiles are on their way, then held as register fragments (d ≤ 128) or
+  // left in shared memory for wgmma to read (d = 256)
+  uint32_t qf[G::kQSmem ? 1 : KS][4];
+  if constexpr (G::kQSmem) {
+    load_q_sw128<D>(reinterpret_cast<uint8_t*>(sQ), Q + b * qs.b + h * qs.h, qs.s, sq, q0, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_proxy_async_smem();   // wgmma reads Q through the async proxy
+    named_barrier_sync(1, kConsumers);
+  } else {
+    load_tile(sQ, Q + b * qs.b + h * qs.h, qs.s, sq, D, q0, 0, BQ, D, tid, kConsumers);
+    cp_async_commit();
+    cp_async_wait<0>();
+    named_barrier_sync(1, kConsumers);
     const bf16* p0 = sQ + row * G::kQLd + 2 * t4;
 #pragma unroll
     for (int kc = 0; kc < KS; ++kc) {
@@ -319,6 +385,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       pf[kc][3] = pack_bf16x2(sacc[8 * kc + 6], sacc[8 * kc + 7]);
     }
   };
+  auto start_s = [&](const uint8_t* kt) {
+    if constexpr (G::kQSmem)
+      mma_s<D>(sacc, reinterpret_cast<const uint8_t*>(sQ), kt);
+    else
+      mma_s<D>(sacc, qf, kt);
+  };
   int s = 0;
   uint32_t phase = 0;
   auto next = [&]() {
@@ -331,7 +403,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncwarp();  // wgmma is .aligned: each warp enters it converged
   fence_regs(sacc);
   wgmma_fence();
-  mma_s<D>(sacc, qf, ring + size_t(s) * G::kSlotBytes);
+  start_s(ring + size_t(s) * G::kSlotBytes);
   wgmma_wait<0>();
   fence_regs(sacc);
   float alpha[2];
@@ -346,7 +418,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(o);
     fence_regs(pf);
     wgmma_fence();
-    mma_s<D>(sacc, qf, ring + size_t(s) * G::kSlotBytes);
+    start_s(ring + size_t(s) * G::kSlotBytes);
     mma_pv<D>(o, pf, ring + size_t(prev) * G::kSlotBytes + G::kTileBytes);
     wgmma_wait<1>();   // S_t is done; P·V may still run
     fence_regs(sacc);
@@ -410,17 +482,17 @@ int launch(const CUtensorMap& map_k, const CUtensorMap& map_v, const bf16* q, bf
 }
 
 // The 4-D map (d, hkv, kv, b) of a k or v prefix, read in boxes of one
-// 64-column swizzle atom × BK rows of one (batch, kv head).  The stride of
+// 64-column swizzle atom × `bk` rows of one (batch, kv head).  The stride of
 // a dimension of size 1 is never used; it is set to the natural one, so a
 // view whose unused stride is odd still encodes.
-bool kv_map(const void* p, int B, int HKV, int kv_len, int D, long long sb, long long ss,
-            long long sh, CUtensorMap* out) {
+bool kv_map(const void* p, int B, int HKV, int kv_len, int D, int bk, long long sb,
+            long long ss, long long sh, CUtensorMap* out) {
   if (HKV == 1) sh = D;
   if (kv_len == 1) ss = sh * HKV;
   if (B == 1) sb = ss * kv_len;
   const uint64_t dims[4] = {uint64_t(D), uint64_t(HKV), uint64_t(kv_len), uint64_t(B)};
   const uint64_t strides[3] = {uint64_t(sh) * 2, uint64_t(ss) * 2, uint64_t(sb) * 2};
-  const uint32_t box[4] = {uint32_t(kAtom), 1, uint32_t(BK), 1};
+  const uint32_t box[4] = {uint32_t(kAtom), 1, uint32_t(bk), 1};
   return tensor_map(p, 4, dims, strides, box, out);
 }
 
@@ -444,20 +516,24 @@ int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void
   using repro::bf16;
   using repro::Strides;
   if (B < 1 || sq < 1 || kv_len < 1 || q_offset < 0 || HKV <= 0 || H % HKV) return -1;
-  if (D != 64 && D != 128) return -1;
+  if (D != 64 && D != 128 && D != 256) return -1;
   for (long long st : {ksb, kss, ksh, vsb, vss, vsh})
     if (st < 0 || st % 8) return -1;
   if ((reinterpret_cast<uintptr_t>(k) & 15) || (reinterpret_cast<uintptr_t>(v) & 15))
     return -1;
+  const int bk = D == 256 ? repro::Geometry<256>::BK : repro::Geometry<64>::BK;
   CUtensorMap map_k, map_v;
-  if (!repro::kv_map(k, B, HKV, kv_len, D, ksb, kss, ksh, &map_k) ||
-      !repro::kv_map(v, B, HKV, kv_len, D, vsb, vss, vsh, &map_v))
+  if (!repro::kv_map(k, B, HKV, kv_len, D, bk, ksb, kss, ksh, &map_k) ||
+      !repro::kv_map(v, B, HKV, kv_len, D, bk, vsb, vss, vsh, &map_v))
     return -2;
   const int rep = H / HKV;
   const Strides qs{qsb, qss, qsh}, os{osb, oss, osh};
   const bf16* qp = static_cast<const bf16*>(q);
   bf16* op = static_cast<bf16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 256)
+    return repro::launch<256>(map_k, map_v, qp, op, B, H, rep, sq, kv_len, q_offset, causal,
+                              stages, qs, os, s);
   if (D == 128)
     return repro::launch<128>(map_k, map_v, qp, op, B, H, rep, sq, kv_len, q_offset, causal,
                               stages, qs, os, s);

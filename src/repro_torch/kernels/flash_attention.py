@@ -8,8 +8,8 @@ strides) and GQA reads kv head ``h // rep`` without a repeated copy.
 ``q_offset`` (the chunk's position) and ``sk`` are runtime arguments:
 one build serves every prefill chunk.  The load ring's depth comes from
 :func:`repro_torch.plan.attention_launch_geometry`; ragged ``sq`` and
-``sk`` are masked in the kernel.  The kernel is built for head dims 64
-and 128; other head dims raise.  The plain version is
+``sk`` are masked in the kernel.  The kernel is built for head dims 64,
+128 and 256; other head dims raise.  The plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
 """
 from __future__ import annotations

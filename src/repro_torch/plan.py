@@ -34,8 +34,10 @@ lanes (``akg.py:38-40``):
   ``q`` and ``kk`` powers of two in [16, 128]; Q, K and V tiles fit
   shared memory.  The serving engine sizes its KV pages by ``kk``.  How
   ``csrc/flash_attention.cu`` (TMA and wgmma) launches on the card — 64
-  query rows per block, 128 kv rows per tile and the depth of the load
-  ring — is launch geometry: :func:`attention_launch_geometry`;
+  query rows per block, 128 kv rows per tile (64 at head dim 256, where
+  a 128-row K and V slot would leave no room for a second one) and the
+  depth of the load ring — is launch geometry:
+  :func:`attention_launch_geometry`;
 * the two scans: ``n`` whole (the reference pins it, ``akg.py:344-346``;
   the state lanes of one channel are neighbouring threads of one warp and
   reduce by shuffles), ``d`` fills a thread block of ``SCAN_THREADS``
@@ -66,8 +68,7 @@ MATMUL_ALIGN = 1024            # the ring's alignment slack (swizzle atom)
 MATMUL_EPI_PAD = 8             # f32 row padding of the staged tile
 POW2 = (16, 32, 64, 128)
 ATTN_ROWS = 64                 # query rows of a block: one consumer warpgroup
-ATTN_BK = 128                  # kv rows per tile: the n of S = Q·Kᵀ
-ATTN_HEAD_DIMS = (64, 128)     # head dims csrc/flash_attention.cu is built for
+ATTN_HEAD_DIMS = (64, 128, 256)  # head dims csrc/flash_attention.cu is built for
 ATTN_STAGES = 3                # depth of the K/V load ring
 ATTN_ALIGN = 1024              # the ring's alignment slack (swizzle atom)
 SCAN_THREADS = 512             # threads of a scan block: d tile × state
@@ -166,12 +167,22 @@ def matmul_launch_geometry(m: int, n: int, k: int) -> Dict[str, int]:
             "smem": matmul_smem_bytes(tile, stages), "workspace": workspace}
 
 
+def attention_bk(d: int) -> int:
+    """Kv rows per flash tile, the n of S = Q·Kᵀ (``Geometry::BK``): 128,
+    or 64 at head dims above 128, where one K and V slot of 128 rows is
+    128 KB."""
+    return 64 if d > 128 else 128
+
+
 def attention_launch_smem(d: int, stages: int) -> int:
     """Dynamic shared memory of one flash block (``Geometry::smem_bytes``
     in ``csrc/flash_attention.cu``): the alignment slack, ``stages`` slots
-    of a bf16 K and V tile, the padded Q rows and two mbarriers per
-    stage."""
-    return ATTN_ALIGN + stages * 2 * ATTN_BK * d * 2 + ATTN_ROWS * (d + PAD) * 2 + 16 * stages
+    of a bf16 K and V tile, the Q rows (padded at d ≤ 128, where they
+    are staged for register fragments; swizzled, unpadded above, where
+    wgmma reads them in place) and two mbarriers per stage."""
+    q_row = d if d > 128 else d + PAD
+    return (ATTN_ALIGN + stages * 2 * attention_bk(d) * d * 2 + ATTN_ROWS * q_row * 2
+            + 16 * stages)
 
 
 @functools.lru_cache(maxsize=256)
@@ -180,14 +191,14 @@ def attention_launch_geometry(sq: int, sk: int, d: int, b: int, h: int,
     """How ``csrc/flash_attention.cu`` launches causal attention of ``sq``
     query rows over ``sk`` kv rows, ``b``·``h`` heads (``hkv`` kv heads),
     head dim ``d``, on an H100: one block per :data:`ATTN_ROWS` query rows
-    of a head (128 blocks for one slot's 256-row chunk at 32 heads), each
-    walking its kv tiles of :data:`ATTN_BK` rows.  ``stages``: the ring
-    depth, :data:`ATTN_STAGES` or fewer if a block's shared memory would
-    not fit, but at least 2 (the kernel holds one tile's V while the next
-    tile's K arrives; ``chip_smoke.py``'s geometry sweep times each
-    depth).  Also returns ``rows``, ``bk``, ``blocks`` and ``smem`` (bytes
-    per block).  Raises ``ValueError`` for a head dim the kernel is not
-    built for.
+    of a head (128 blocks for one slot's 256-row chunk at 32 heads, 32 at
+    gemma3's 8), each walking its kv tiles of :func:`attention_bk` rows.
+    ``stages``: the ring depth, :data:`ATTN_STAGES` or fewer if a block's
+    shared memory would not fit, but at least 2 (the kernel holds one
+    tile's V while the next tile's K arrives; ``chip_smoke.py``'s
+    geometry sweep times each depth).  Also returns ``rows``, ``bk``,
+    ``blocks`` and ``smem`` (bytes per block).  Raises ``ValueError`` for
+    a head dim the kernel is not built for.
     """
     if d not in ATTN_HEAD_DIMS or h % hkv:
         raise ValueError(f"flash kernel: head dim {d} (built for "
@@ -195,7 +206,7 @@ def attention_launch_geometry(sq: int, sk: int, d: int, b: int, h: int,
     stages = ATTN_STAGES
     while attention_launch_smem(d, stages) > SMEM_BYTES and stages > 2:
         stages -= 1
-    return {"rows": ATTN_ROWS, "bk": ATTN_BK, "stages": stages,
+    return {"rows": ATTN_ROWS, "bk": attention_bk(d), "stages": stages,
             "blocks": b * h * -(-sq // ATTN_ROWS),
             "smem": attention_launch_smem(d, stages)}
 

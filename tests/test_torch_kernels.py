@@ -61,6 +61,7 @@ def _flash_inputs(b, sq, sk, h, hkv, d, seed):
     (2, 64, 64, 4, 2, 32, 0),        # GQA
     (1, 32, 128, 2, 2, 64, 64),      # prefill chunk at offset 64, page-bound kv
     (2, 16, 48, 4, 2, 16, 16),       # smoke serving chunk, GQA, offset
+    (1, 64, 128, 2, 1, 256, 64),     # head dim 256 (gemma3), GQA, offset
 ])
 def test_flash_plain_matches_pallas(b, sq, sk, h, hkv, d, q_offset):
     q, k, v = _flash_inputs(b, sq, sk, h, hkv, d, seed=4)
@@ -111,7 +112,8 @@ def test_ops_dispatch_cpu_to_plain_versions():
 # ---------------------------------------------------------------------------
 
 MATMUL_SHAPES = [(16, 128, 64), (16, 64, 128), (128, 128, 128),
-                 (256, 8192, 2048), (256, 2048, 8192), (200, 8192, 2048)]
+                 (256, 8192, 2048), (256, 2048, 8192), (200, 8192, 2048),
+                 (256, 10240, 2560), (256, 2560, 10240)]   # gemma3's MLP
 ATTN_SHAPES = [(16, 48, 16), (8, 32, 16), (128, 128, 64), (256, 4096, 64),
                (256, 1088, 64), (256, 1024, 64)]
 
@@ -167,6 +169,18 @@ def test_matmul_geometry_fills_the_card_at_serving_shapes(m, n, k, split):
     assert geo["blocks"] >= 120 and geo["split"] == split
 
 
+@pytest.mark.parametrize("m,n,k,split,blocks", [(256, 10240, 2560, 1, 160),   # gate/up
+                                                (256, 2560, 10240, 2, 80)])   # down
+def test_matmul_geometry_at_gemma3_mlp_shapes(m, n, k, split, blocks):
+    """gemma3's full chunk: gate/up fills the card with 160 tiles unsplit;
+    the down projection's 40 tiles split K in two (a split of 4 would
+    make 160 blocks, past one wave), each split keeping 80 k tiles."""
+    geo = tplan.matmul_launch_geometry(m, n, k)
+    assert (geo["split"], geo["blocks"]) == (split, blocks)
+    assert geo["stages"] == tplan.MATMUL_STAGES
+    assert geo["smem"] <= tplan.SMEM_BYTES
+
+
 @pytest.mark.parametrize("m,k,n", [(37, 70, 50), (200, 2048, 8192)])
 def test_matmul_pad_operands_keeps_the_product(m, k, n):
     """The wrapper's alignment padding: the padded operands' product,
@@ -216,18 +230,21 @@ def test_plan_full_width_tiles():
 # flash launch geometry
 # ---------------------------------------------------------------------------
 
-# the chunk rows and page-aligned kv prefixes granite's serving traffic
-# sends (chunk 256, page 128), at one slot and at four
+# the chunk rows and page-aligned kv prefixes the serving traffic sends
+# (chunk 256, page 128), at one slot and at four: granite's (head dim 64,
+# 32 heads over 8), the qwen3 shape (128, 32 over 4) and gemma3's global
+# layers (256, 8 over 4)
+FLASH_HEADS = {64: (32, 8), 128: (32, 4), 256: (8, 4)}
 FLASH_GEOMETRY = [(c, kv, d, b) for c in (44, 128, 132, 232, 256)
-                  for kv in (384, 640, 768, 1024) for d in (64, 128)
+                  for kv in (384, 640, 768, 1024) for d in (64, 128, 256)
                   for b in (1, 4)]
 
 
 @pytest.mark.parametrize("c,kv,d,b", FLASH_GEOMETRY)
 def test_attention_launch_geometry_fits_hopper(c, kv, d, b):
-    h, hkv = 32, (8 if d == 64 else 4)
+    h, hkv = FLASH_HEADS[d]
     geo = tplan.attention_launch_geometry(c, kv, d, b, h, hkv)
-    assert geo["rows"] == tplan.ATTN_ROWS and geo["bk"] == tplan.ATTN_BK
+    assert geo["rows"] == tplan.ATTN_ROWS and geo["bk"] == tplan.attention_bk(d)
     assert geo["smem"] == tplan.attention_launch_smem(d, geo["stages"])
     assert geo["smem"] <= tplan.SMEM_BYTES          # fits 227 KB
     assert geo["stages"] >= 2                       # loads overlap compute
@@ -242,7 +259,20 @@ def test_attention_geometry_fills_the_card_at_one_slot(kv, d):
     assert geo["blocks"] >= 128
 
 
-@pytest.mark.parametrize("d", [16, 32, 256])
+@pytest.mark.parametrize("stages,fits", [(2, True), (3, True), (4, False)])
+def test_attention_geometry_at_head_dim_256(stages, fits):
+    """d 256 takes 64-row kv tiles: a K+V slot is 64 KB, so three slots fit
+    227 KB beside the 32 KB swizzled Q tile (four do not), and the plan
+    takes three.  gemma3's chunk at one slot (b·h 1·8) is 32 blocks."""
+    assert tplan.attention_bk(256) == 64
+    assert (tplan.attention_launch_smem(256, stages) <= tplan.SMEM_BYTES) == fits
+    assert tplan.attention_launch_smem(256, stages) == (
+        tplan.ATTN_ALIGN + stages * 2 * 64 * 256 * 2 + 64 * 256 * 2 + 16 * stages)
+    geo = tplan.attention_launch_geometry(256, 1024, 256, 1, 8, 4)
+    assert (geo["stages"], geo["blocks"], geo["bk"]) == (3, 32, 64)
+
+
+@pytest.mark.parametrize("d", [16, 32])
 def test_attention_geometry_refuses_unbuilt_head_dims(d):
     with pytest.raises(ValueError):
         tplan.attention_launch_geometry(256, 1024, d, 1, 32, 8)

@@ -325,6 +325,64 @@ def test_mamba_serve_decode_step_matches_reference(arch):
 
 
 # ---------------------------------------------------------------------------
+# gemma3: a 16-token window (smoke) on the local layers, full attention on
+# every 6th layer.  Smoke leaves 2 layers, both local, so the steps run at
+# 6 layers (the global one last) and 7 (a local layer after it, past the
+# pattern's period)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=2)
+def gemma3_setup(n_layers):
+    over = dict(n_layers=n_layers, dtype="float32")
+    jcfg = jax_get_arch("gemma3_4b").smoke().scaled(**over)
+    tcfg = get_arch("gemma3_4b").smoke().scaled(**over)
+    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    return jcfg, tcfg, jp, bridge.params_from_numpy(
+        jax.tree.map(np.asarray, jp), tcfg, "cpu")
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+@pytest.mark.parametrize("n_layers", [6, 7])
+def test_gemma3_chunk_step_matches_reference(n_layers, kernels):
+    """Four 8-row chunks over 32 positions from a random cache: by the
+    last chunk the window has cut the local layers' prefix.  Every
+    chunk's logits and every layer's KV rows equal the reference's; with
+    the kernel routes on, the global layer takes flash (plain version)."""
+    jcfg, tcfg, jp, tp = gemma3_setup(n_layers)
+    assert [tcfg.is_global_attn_layer(i) for i in range(n_layers)].count(True) == 1
+    jc, tc = both_caches(jcfg, tcfg, 1, 32, seed=18)
+    toks = _prompt(19, 32)
+    tt = torch.from_numpy(toks).long()
+    jstep = jax.jit(lambda p, t, c, off: JT.chunk_step(p, jcfg, t, c, off, 32))
+    for off in range(0, 32, 8):
+        jl, jc = jstep(jp, jnp.asarray(toks[:, off:off + 8]), jc, jnp.int32(off))
+        with kernel_mode(enabled=kernels, min_attn_q=8, min_matmul_rows=8):
+            tl, tc = TT.chunk_step(tp, tcfg, tt[:, off:off + 8], tc, off, 32)
+        close(tl, jl, LOGIT_TOL)
+    _close_caches(tc, jc, tcfg)
+
+
+@pytest.mark.parametrize("n_layers", [6, 7])
+def test_gemma3_serve_decode_step_matches_reference(n_layers):
+    """Ragged decode with one inactive slot; two slots sit past the window
+    (lengths 33 and 20 against 16), so their local layers read a cut
+    prefix while the global layer reads all of it."""
+    jcfg, tcfg, jp, tp = gemma3_setup(n_layers)
+    jc, tc = both_caches(jcfg, tcfg, 3, 40, seed=20)
+    token = _prompt(21, 3).reshape(3, 1)
+    lengths = np.array([5, 33, 20], np.int32)
+    active = np.array([True, True, False])
+    jl, jc = jax.jit(lambda p, t, c, n, a: JT.serve_decode_step(
+        p, jcfg, t, c, n, a, 40))(jp, jnp.asarray(token), jc,
+                                  jnp.asarray(lengths), jnp.asarray(active))
+    tl, tc = TT.serve_decode_step(tp, tcfg, torch.from_numpy(token).long(), tc,
+                                  torch.from_numpy(lengths).long(),
+                                  torch.from_numpy(active), 40)
+    close(tl, jl, LOGIT_TOL)
+    _close_caches(tc, jc, tcfg)
+
+
+# ---------------------------------------------------------------------------
 # bridge, init and devices
 # ---------------------------------------------------------------------------
 

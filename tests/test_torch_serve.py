@@ -8,7 +8,8 @@ f32 weights (carried across by ``repro_torch.bridge``), the same prompts
 (numpy, seeded) and the same page size.  Greedy tokens must be equal.
 The ragged interleave also runs on falcon-mamba smoke, where the decode
 half of a mixed tick must leave the prefilling slot's recurrent state
-alone.
+alone, and on gemma3 smoke at 7 layers, with prompts past its 16-token
+window.
 
 The JAX engines here never enable the Pallas path, and each runs inside
 ``pallas_mode.pallas_mode(...)`` so the process-wide mode is restored
@@ -43,9 +44,12 @@ PAGE = 16
 
 FALCON = (jax_get_arch("falcon_mamba_7b").smoke().scaled(dtype="float32"),
           get_arch("falcon_mamba_7b").smoke().scaled(dtype="float32"))
+# a global layer (5) between local ones: smoke's 2 layers are both local
+GEMMA3 = (jax_get_arch("gemma3_4b").smoke().scaled(n_layers=7, dtype="float32"),
+          get_arch("gemma3_4b").smoke().scaled(n_layers=7, dtype="float32"))
 
 
-@functools.lru_cache(maxsize=2)
+@functools.lru_cache(maxsize=3)
 def weights(cfgs=(JCFG, TCFG)):
     jcfg, tcfg = cfgs
     jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
@@ -59,6 +63,9 @@ def prompt(seed: int, plen: int) -> np.ndarray:
 
 
 def jax_continuous(prompts, gen, max_len, batch, cfgs=(JCFG, TCFG), **kw):
+    """The reference engine's greedy tokens; ``use_pallas`` and
+    ``pallas_opts`` in ``kw`` route its ticks through the Pallas kernels
+    (interpret mode on the CPU)."""
     with pallas_mode.pallas_mode(enabled=False):
         eng = jserve.ContinuousEngine(cfgs[0], weights(cfgs)[0], batch,
                                       max_len, max_new=gen, page=PAGE, **kw)
@@ -171,6 +178,28 @@ def test_falcon_ragged_interleave_matches_reference(kernels):
         prompts, gen, max_len, batch=2, chunk=chunk, cfgs=FALCON)
 
 
+@pytest.mark.parametrize("kernels", [False, True])
+def test_gemma3_ragged_interleave_matches_reference(kernels):
+    """gemma3 smoke (7 layers) through the continuous engine with ragged
+    prompts longer than the 16-token window, so prefill chunks and
+    decode steps both read a cut prefix on the local layers.  Greedy
+    tokens equal the reference engine's, on the plain route and with the
+    thresholds lowered to 16 on both sides (``test_serve.py:157``), where
+    the global layer's 16-row chunks take flash: the port's plain version
+    against the Pallas kernel."""
+    gen, max_len, chunk = 6, 64, 16
+    plens = [40, 23, 33]
+    prompts = [prompt(i + 80, pl) for i, pl in enumerate(plens)]
+    opts = dict(min_attn_q=16, min_matmul_rows=16)
+    eng, reqs = port_continuous(prompts, gen, max_len, batch=2, chunk=chunk,
+                                cfgs=GEMMA3, use_kernels=kernels,
+                                kernel_opts=opts)
+    assert eng.ticks_overlap > 0
+    assert [r.generated for r in reqs] == jax_continuous(
+        prompts, gen, max_len, batch=2, chunk=chunk, cfgs=GEMMA3,
+        use_pallas=kernels, pallas_opts=opts)
+
+
 def test_falcon_slot_reuse_zeroes_recurrent_state():
     """Admission into a reused slot zeroes its conv tail and SSM state
     (left nonzero by the previous occupant) and no other slot's; the
@@ -271,11 +300,13 @@ def test_page_size_from_plan():
     ("smoke", "cpu", 32, False),      # the plain version takes every head dim
     ("granite", "cuda", 256, False),  # head dim 64
     ("falcon", "cuda", 256, False),   # no attention layers
+    ("gemma3", "cuda", 256, False),   # head dim 256 on its global layers
 ])
 def test_kernel_mode_refuses_head_dims_without_a_flash_kernel(arch, device, chunk,
                                                               refused):
     cfg = {"smoke": TCFG, "granite": get_arch("granite_3_2b"),
-           "falcon": get_arch("falcon_mamba_7b").smoke()}[arch]
+           "falcon": get_arch("falcon_mamba_7b").smoke(),
+           "gemma3": get_arch("gemma3_4b")}[arch]
     check = functools.partial(tserve.check_flash_head_dim, cfg, torch.device(device),
                               chunk, kernel_mode.KernelMode().min_attn_q)
     if refused:
@@ -305,3 +336,11 @@ def test_serve_main_runs_falcon_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "4 kernel plans warmed" in out
     assert "2 seqs, 6 tokens" in out and "falcon-mamba-7b" in out
+
+
+def test_serve_main_runs_gemma3_on_cpu(capsys):
+    """The README's gemma3 command, with prompts past the smoke window."""
+    tserve.main(["--arch", "gemma3_4b", "--smoke", "--device", "cpu", "--kernels",
+                 "--batch", "2", "--prompt-len", "40", "--gen", "3", "--chunk", "16"])
+    out = capsys.readouterr().out
+    assert "2 seqs, 6 tokens" in out and "gemma3-4b" in out
