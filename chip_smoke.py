@@ -20,9 +20,9 @@ Phases, each of which exits nonzero on failure:
    kernel and the library call stands the host's µs per call
    (``host_us``).  The matmul and flash kernels must give the same bits
    on two launches with the same inputs.  The matmul cases include
-   gemma3's MLP shapes; the flash cases the ragged chunks granite's and
-   gemma3's traffic send (head dims 64 and 256), a qwen3-shape chunk
-   (head dim 128) and a gemma3 chunk over a 1536-row prefix; beside them
+   gemma3's MLP shapes; the flash cases the ragged chunks granite's,
+   qwen3-moe's and gemma3's traffic send (head dims 64, 128 and 256) and
+   a gemma3 chunk over a 1536-row prefix; beside them
    stand which backend ``scaled_dot_product_attention`` takes for the
    library call and each backend's time, and, for both kernels, a sweep
    of the launch geometry at the serving shapes (for flash the ring
@@ -45,7 +45,23 @@ Phases, each of which exits nonzero on failure:
    windowed path, as in the reference), so flash launches are 5 per
    chunk tick; the chunk-step check runs a 1536-token prompt and
    compares the chunk at offset 1280 as well, where the window cuts the
-   local layers' prefix and flash reads 1536 kv rows.
+   local layers' prefix and flash reads 1536 kv rows;
+6. serve — the same for ``qwen3_moe_30b_a3b`` at full width and depth
+   (48 layers, head dim 128 with 32 heads over 4 KV heads, 128 experts
+   top-8 of d_ff 768 on every layer; 30.5 B parameters, about 61 GB in
+   bf16), after gemma3's engine and weights are freed.  Every chunk
+   goes to the flash kernel on all 48 layers, so flash launches are 48
+   per chunk tick; the experts run as batched einsums over all 128 of
+   them, as in the reference, and no path of this model takes the
+   matmul kernel.  The chunk-step check prints how many (token, k)
+   expert picks differ between its runs, and the kernels' distance from
+   the plain run when they take the plain run's picks.
+
+The chunk-step check carries the cache each chunk returns into the next
+(each Mamba state copied, so no view of a whole chunk's f32 states stays
+alive), and its f32 leg casts one layer at a time to f32 as the walk
+reaches it: a whole f32 copy of qwen3-moe's weights would need some
+122 GB.
 
 The selective-scan kernel runs on no model path (the reference's
 non-fused Mamba route is plain jnp), so phase 2 alone launches it.
@@ -63,6 +79,7 @@ import os
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -336,19 +353,24 @@ def phase_matmul(gen: torch.Generator) -> dict:
 
 # (b, c, kv_len, q_offset, h, hkv, d): first granite's serving chunk (one
 # slot, b = 1, at offsets 768 and 512), then the ragged chunks granite's
-# traffic sends (page 128), a qwen3-shape chunk (32 heads over 4 kv heads,
-# head dim 128), and the b = 4 cases of earlier runs; then the same chunks
-# at gemma3's global-layer heads (8 over 4 kv heads, head dim 256), and its
-# chunk at offset 1280 over a 1536-row prefix (past the local window)
+# traffic sends (page 128), qwen3-moe's full chunk (32 heads over 4 kv
+# heads, head dim 128), and the b = 4 cases of earlier runs; then
+# qwen3-moe's ragged chunks and b = 4; then the same chunks at gemma3's
+# global-layer heads (8 over 4 kv heads, head dim 256), and its chunk at
+# offset 1280 over a 1536-row prefix (past the local window)
 GRANITE_HEADS = (32, 8, 64)
+QWEN3_HEADS = (32, 4, 128)
 GEMMA3_HEADS = (8, 4, 256)
-FLASH_QWEN3_CASE = (1, 256, 1024, 768, 32, 4, 128)
+FLASH_QWEN3_CASE = (1, 256, 1024, 768, *QWEN3_HEADS)
 FLASH_GEMMA3_CASE = (1, 256, 1024, 768, *GEMMA3_HEADS)
 FLASH_CASES = [(1, 256, 1024, 768, *GRANITE_HEADS), (1, 256, 768, 512, *GRANITE_HEADS),
                (1, 44, 384, 256, *GRANITE_HEADS), (1, 128, 640, 512, *GRANITE_HEADS),
                (1, 132, 1024, 768, *GRANITE_HEADS), (1, 232, 1024, 768, *GRANITE_HEADS),
                FLASH_QWEN3_CASE, (4, 256, 1024, 768, *GRANITE_HEADS),
                (4, 256, 256, 0, *GRANITE_HEADS), (4, 100, 1000, 900, *GRANITE_HEADS),
+               (1, 44, 384, 256, *QWEN3_HEADS), (1, 128, 640, 512, *QWEN3_HEADS),
+               (1, 132, 1024, 768, *QWEN3_HEADS), (1, 232, 1024, 768, *QWEN3_HEADS),
+               (4, 256, 1024, 768, *QWEN3_HEADS),
                FLASH_GEMMA3_CASE, (1, 256, 768, 512, *GEMMA3_HEADS),
                (1, 44, 384, 256, *GEMMA3_HEADS), (1, 128, 640, 512, *GEMMA3_HEADS),
                (1, 132, 1024, 768, *GEMMA3_HEADS), (1, 232, 1024, 768, *GEMMA3_HEADS),
@@ -688,7 +710,13 @@ def describe(cfg) -> str:
                 f"{cfg.d_inner}, ssm_state {cfg.ssm_state}, dt_rank {cfg.dt_rank_}, "
                 f"conv {cfg.conv_width}")
     text = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
-            f"{cfg.n_kv_heads} kv, head_dim {cfg.hd}, d_ff {cfg.d_ff}")
+            f"{cfg.n_kv_heads} kv, head_dim {cfg.hd}{', qk_norm' if cfg.qk_norm else ''}")
+    if cfg.n_experts:
+        n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+        text += (f", {cfg.n_experts} experts top-{cfg.top_k} of expert d_ff {cfg.d_ff} "
+                 f"on {n_moe} layers{' with a shared expert' if cfg.shared_expert else ''}")
+    else:
+        text += f", d_ff {cfg.d_ff}"
     if cfg.sliding_window:
         n_global = sum(cfg.is_global_attn_layer(i) for i in range(cfg.n_layers))
         text += (f", window {cfg.sliding_window} on {cfg.n_layers - n_global} local "
@@ -746,6 +774,8 @@ def phase_serve(gpu: str, arch: str, path_kernels, relative_logits: bool = False
             "token id out of range")
     require(all(launches[k] > 0 for k in path_kernels),
             f"a kernel was not launched on the {cfg.name} path: {launches}")
+    require(all(n == 0 for k, n in launches.items() if k not in path_kernels),
+            f"a kernel off the {cfg.name} path was launched: {launches}")
     if "scan_gate" in path_kernels:
         # every chunk of this traffic has >= min_scan_seq rows
         want = cfg.n_layers * eng.ticks_prefill
@@ -836,7 +866,7 @@ def profile_steps(cfg, params, max_len) -> None:
             busy = sum(e.self_device_time_total for e in events) / reps / 1e3
             require(busy > 0, f"{name}: the profiler saw no device time")
             top = sorted(events, key=lambda e: e.self_device_time_total,
-                         reverse=True)[:4]
+                         reverse=True)[:6]
             tops = "; ".join(f"{e.key[:48]} {e.self_device_time_total / reps / 1e3:.3f} ms"
                              f" x{e.count // reps}" for e in top)
             ours = "; ".join(
@@ -858,40 +888,97 @@ def check_chunk_step(cfg, params, toks, max_len, relative: bool,
                      offsets=(SERVE_CHUNK,)) -> None:
     """The prompt's chunks from offset 0 up to the last of ``offsets``
     through ``chunk_step`` three ways — with the kernels, with plain torch
-    ops, and with plain ops on f32 copies of the weights — and the logits
-    of the chunk at each of ``offsets`` compared."""
+    ops, and with plain ops on f32 copies of the weights — each chunk
+    from the cache the one before returned, and the logits of the chunk
+    at each of ``offsets`` compared.  For a model with experts, also the
+    number of (token, k) expert picks in which the legs differ there, and
+    a fourth run with the kernels that takes the plain run's picks in
+    every layer of every chunk: its distance from the plain run is the
+    kernels' own, with no routing flip in it."""
     from repro_torch.model import transformer as T
     from repro_torch.model.kernel_mode import kernel_mode
 
-    def run(cfg_, params_, kernels):
+    def run(cfg_, params_, kernels, replay=None):
         cache = T.init_cache(cfg_, 1, max_len, "cuda")
-        logits = {}
+        logits, picks = {}, {}
         with kernel_mode(enabled=kernels):
             for off in range(0, max(offsets) + 1, SERVE_CHUNK):
-                # only the logits are kept: a returned Mamba state may be a
-                # view of the whole chunk's f32 states
-                lg = T.chunk_step(params_, cfg_, toks[:, off:off + SERVE_CHUNK], cache,
-                                  off, off + SERVE_CHUNK)[0]
+                with routed(replay[off] if replay else None) as picks[off]:
+                    lg, cache = T.chunk_step(params_, cfg_, toks[:, off:off + SERVE_CHUNK],
+                                             cache, off, off + SERVE_CHUNK)
+                # a Mamba state may be a view of the whole chunk's f32 states
+                cache = [{n: t.clone() for n, t in lc.items()} if "ssm" in lc else lc
+                         for lc in cache]
                 if off in offsets:
                     logits[off] = lg.float()
                 del lg
-        return logits
+        return logits, picks
 
-    kerns = run(cfg, params, True)
-    plains = run(cfg, params, False)
-    f32s = run(cfg.scaled(dtype="float32"), _to_f32(params), False)
+    (kerns, kpicks), (plains, ppicks) = run(cfg, params, True), run(cfg, params, False)
+    f32_params = {k: F32Layers(v) if k == "layers" else v.float() for k, v in params.items()}
+    f32s, fpicks = run(cfg.scaled(dtype="float32"), f32_params, False)
+    held = run(cfg, params, True, replay=ppicks)[0] if cfg.n_experts else None
     torch.cuda.synchronize()
     for off in offsets:
+        if cfg.n_experts:
+            e = cfg.n_experts
+            total = sum(ids.numel() for ids in ppicks[off])
+            print(f"  expert picks at offset {off}: of {total} (token, k) picks, "
+                  f"{pick_flips(kpicks[off], ppicks[off], e)} differ between the kernels "
+                  f"and plain runs, {pick_flips(ppicks[off], fpicks[off], e)} between "
+                  f"plain and f32, {pick_flips(kpicks[off], fpicks[off], e)} between "
+                  f"kernels and f32; with the plain run's picks, kernels vs plain "
+                  f"rms_rel={rms(held[off] - plains[off]) / rms(plains[off]):.3e} "
+                  f"max_abs_err={float((held[off] - plains[off]).abs().max()):.3e}")
         compare_logits(off, kerns[off], plains[off], f32s[off], relative)
+
+
+class F32Layers:
+    """``params["layers"]`` for the f32 leg: each layer is cast to f32
+    when the walk reaches it, so one layer's f32 copy is alive at a time."""
+
+    def __init__(self, layers):
+        self.layers = layers
+
+    def __iter__(self):
+        return (_to_f32(lp) for lp in self.layers)
+
+
+@contextmanager
+def routed(replay=None):
+    """Collect the expert ids (t, k) of every MoE call inside the block
+    (``mlp.route`` wrapped).  With ``replay``, such a list from another
+    run, the i-th call takes the i-th picks instead, with gates
+    renormalised from its own router's probabilities."""
+    from repro_torch.model import mlp as MLP
+
+    route, log = MLP.route, []
+
+    def wrapped(p, cfg, xt):
+        probs, gates, ids = route(p, cfg, xt)
+        if replay:
+            ids = replay[len(log)]
+            gates = probs.gather(-1, ids)
+            gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+        log.append(ids)
+        return probs, gates, ids
+    MLP.route = wrapped
+    try:
+        yield log
+    finally:
+        MLP.route = route
+
+
+def pick_flips(a, b, e: int) -> int:
+    """(token, k) picks in layer list ``a`` that ``b`` does not make."""
+    return sum(int((F.one_hot(x, e).sum(1) > F.one_hot(y, e).sum(1)).sum())
+               for x, y in zip(a, b))
 
 
 def compare_logits(off: int, kern, plain, f32, relative: bool) -> None:
     """One chunk's logits with the kernels against the plain bf16 path and
     against the f32 run (see LOGIT_RMS_TOL and LOGIT_VS_F32)."""
     require(bool(torch.isfinite(kern).all()), "chunk_step: non-finite logits")
-
-    def rms(x):
-        return float(x.pow(2).mean().sqrt())
 
     rel = rms(kern - plain) / rms(plain)
     worst = float((kern - plain).abs().max())
@@ -910,6 +997,10 @@ def compare_logits(off: int, kern, plain, f32, relative: bool) -> None:
           f"plain max_abs_err={worst_plain:.3e}; argmax agreement {agree:.4f} "
           f"{'PASS' if ok else 'FAIL'}")
     require(ok, "chunk_step with the kernels disagrees with the plain path")
+
+
+def rms(x) -> float:
+    return float(x.pow(2).mean().sqrt())
 
 
 def _to_f32(tree):
@@ -954,11 +1045,13 @@ def main() -> int:
                              relative_logits=True)
         gemma3 = phase_serve(gpu, "gemma3_4b", ("matmul", "flash_attention"),
                              check_offsets=(SERVE_CHUNK, 1280))
+        qwen3_moe = phase_serve(gpu, "qwen3_moe_30b_a3b", ("flash_attention",))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     for rec in records:
-        rec["launches"] = sum(run[rec["name"]] for run in (granite, falcon, gemma3))
+        rec["launches"] = sum(run[rec["name"]]
+                              for run in (granite, falcon, gemma3, qwen3_moe))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cases")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

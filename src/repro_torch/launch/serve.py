@@ -1,7 +1,7 @@
 """Batched serving launcher: continuous batching over the planned kernels.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        [--arch granite_3_2b|falcon_mamba_7b|...] \
+        [--arch granite_3_2b|falcon_mamba_7b|gemma3_4b|qwen3_moe_30b_a3b|...] \
         [--batch 4 --prompt-len 16 --gen 12 --chunk 16] [--kernels] \
         [--smoke] [--device cuda|cpu]
 

@@ -17,9 +17,11 @@ helpers, ``_stack_walk``, ``chunk_step``, ``serve_decode_step``,
   one device and are dropped.
 
 Two mixers are ported, attention and Mamba (``model/ssm.py``), each
-with a SwiGLU MLP or with no FFN: dense decoders, falcon-mamba and the
-jamba attention/Mamba interleave without experts.  Any other layer kind
-(MoE, cross attention, encoders, frontends, M-RoPE) raises
+with a SwiGLU MLP, a mixture of experts or no FFN: dense decoders, the
+MoE decoders (qwen3-moe, llama4 with its shared expert), falcon-mamba
+and the jamba attention/Mamba interleave with its experts.  The steps
+drop MoE's aux loss, as the reference's serving steps do.  Any other
+layer kind (cross attention, encoders, frontends, M-RoPE) raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -92,11 +94,10 @@ def check_supported(cfg: ArchConfig) -> List[LayerSpec]:
             f"{cfg.name}: encoders, frontends and M-RoPE are not ported yet")
     specs = layer_specs(cfg, "decoder")
     for spec in specs:
-        if spec.mixer not in ("attn", "mamba") or \
-                spec.ffn not in ("mlp", "none") or spec.cross:
+        if spec.mixer not in ("attn", "mamba") or spec.cross:
             raise NotImplementedError(
                 f"{cfg.name}: layer kind {spec} is not ported yet "
-                "(only attention or Mamba mixers with a SwiGLU MLP or none)")
+                "(only attention or Mamba mixers without cross attention)")
     return specs
 
 
@@ -114,6 +115,9 @@ def _init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec,
     if spec.ffn == "mlp":
         p["ln2"] = rmsnorm_init(cfg.d_model, gen.device)
         p["ffn"] = MLP.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
+    elif spec.ffn == "moe":
+        p["ln2"] = rmsnorm_init(cfg.d_model, gen.device)
+        p["ffn"] = MLP.init_moe(gen, cfg, dtype)
     return p
 
 
@@ -142,6 +146,9 @@ def _head(params) -> torch.Tensor:
 def _ffn(p, spec: LayerSpec, cfg: ArchConfig, x):
     if spec.ffn == "mlp":
         x = x + MLP.mlp(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    elif spec.ffn == "moe":
+        h, _ = MLP.moe(p["ffn"], cfg, rmsnorm(x, p["ln2"], cfg.norm_eps))
+        x = x + h
     return x
 
 

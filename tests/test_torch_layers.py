@@ -387,7 +387,8 @@ def test_gemma3_serve_decode_step_matches_reference(n_layers):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_0_6b", "gemma3_4b",
-                                  "falcon_mamba_7b"])
+                                  "falcon_mamba_7b", "qwen3_moe_30b_a3b",
+                                  "jamba_v0_1_52b", "llama4_scout_17b_a16e"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_bridge_round_trip_is_bit_exact(arch, dtype):
     jcfg = jax_get_arch(arch).smoke().scaled(dtype=dtype)
@@ -418,8 +419,7 @@ def test_init_params_shapes_and_seed():
     assert a["embed"].dtype == torch.bfloat16 and a["final_ln"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["qwen2_vl_7b", "qwen3_moe_30b_a3b",
-                                  "jamba_v0_1_52b", "seamless_m4t_large_v2"])
+@pytest.mark.parametrize("arch", ["qwen2_vl_7b", "seamless_m4t_large_v2"])
 def test_unported_layer_kinds_raise(arch):
     with pytest.raises(NotImplementedError):
         TT.init_params(get_arch(arch).smoke(), device="cpu")

@@ -8,8 +8,10 @@ f32 weights (carried across by ``repro_torch.bridge``), the same prompts
 (numpy, seeded) and the same page size.  Greedy tokens must be equal.
 The ragged interleave also runs on falcon-mamba smoke, where the decode
 half of a mixed tick must leave the prefilling slot's recurrent state
-alone, and on gemma3 smoke at 7 layers, with prompts past its 16-token
-window.
+alone, on gemma3 smoke at 7 layers, with prompts past its 16-token
+window, and on the MoE archs' smoke configs, whose capacity-bounded
+routing makes a token's output depend on the other rows of its chunk or
+decode tick.
 
 The JAX engines here never enable the Pallas path, and each runs inside
 ``pallas_mode.pallas_mode(...)`` so the process-wide mode is restored
@@ -47,9 +49,12 @@ FALCON = (jax_get_arch("falcon_mamba_7b").smoke().scaled(dtype="float32"),
 # a global layer (5) between local ones: smoke's 2 layers are both local
 GEMMA3 = (jax_get_arch("gemma3_4b").smoke().scaled(n_layers=7, dtype="float32"),
           get_arch("gemma3_4b").smoke().scaled(n_layers=7, dtype="float32"))
+MOE = {arch: (jax_get_arch(arch).smoke().scaled(dtype="float32"),
+              get_arch(arch).smoke().scaled(dtype="float32"))
+       for arch in ("qwen3_moe_30b_a3b", "llama4_scout_17b_a16e", "jamba_v0_1_52b")}
 
 
-@functools.lru_cache(maxsize=3)
+@functools.lru_cache(maxsize=8)
 def weights(cfgs=(JCFG, TCFG)):
     jcfg, tcfg = cfgs
     jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
@@ -200,6 +205,35 @@ def test_gemma3_ragged_interleave_matches_reference(kernels):
         use_pallas=kernels, pallas_opts=opts)
 
 
+@pytest.mark.parametrize("arch,kernels", [
+    ("qwen3_moe_30b_a3b", False), ("qwen3_moe_30b_a3b", True),
+    ("llama4_scout_17b_a16e", False), ("llama4_scout_17b_a16e", True),
+    # jamba's plain Mamba route is held by the step tests; one engine run
+    ("jamba_v0_1_52b", True),
+])
+def test_moe_ragged_interleave_matches_reference(arch, kernels):
+    """The MoE archs at smoke (4 experts; top-2, or top-1 with llama4's
+    shared expert; jamba's experts on every other layer of its Mamba/
+    attention interleave) through the continuous engine: ragged prompts
+    make mixed ticks and ragged last chunks, whose rows are routed
+    together with a capacity set by their count (cap 12 for a 16-row
+    chunk of qwen3-moe, 4 for its 3-row tail), and decode ticks route
+    the inactive slot's row with the active one.  Greedy tokens equal
+    the reference engine's, on the plain route and with the thresholds
+    lowered to 16 on both sides (``test_serve.py:157``)."""
+    gen, max_len, chunk = 6, 64, 16
+    plens = [35, 19, 26]
+    prompts = [prompt(i + 90, pl) for i, pl in enumerate(plens)]
+    opts = dict(min_attn_q=16, min_matmul_rows=16, min_scan_seq=16)
+    eng, reqs = port_continuous(prompts, gen, max_len, batch=2, chunk=chunk,
+                                cfgs=MOE[arch], use_kernels=kernels,
+                                kernel_opts=opts)
+    assert eng.ticks_overlap > 0
+    assert [r.generated for r in reqs] == jax_continuous(
+        prompts, gen, max_len, batch=2, chunk=chunk, cfgs=MOE[arch],
+        use_pallas=kernels, pallas_opts=opts)
+
+
 def test_falcon_slot_reuse_zeroes_recurrent_state():
     """Admission into a reused slot zeroes its conv tail and SSM state
     (left nonzero by the previous occupant) and no other slot's; the
@@ -301,12 +335,14 @@ def test_page_size_from_plan():
     ("granite", "cuda", 256, False),  # head dim 64
     ("falcon", "cuda", 256, False),   # no attention layers
     ("gemma3", "cuda", 256, False),   # head dim 256 on its global layers
+    ("qwen3_moe", "cuda", 256, False),  # head dim 128
 ])
 def test_kernel_mode_refuses_head_dims_without_a_flash_kernel(arch, device, chunk,
                                                               refused):
     cfg = {"smoke": TCFG, "granite": get_arch("granite_3_2b"),
            "falcon": get_arch("falcon_mamba_7b").smoke(),
-           "gemma3": get_arch("gemma3_4b")}[arch]
+           "gemma3": get_arch("gemma3_4b"),
+           "qwen3_moe": get_arch("qwen3_moe_30b_a3b")}[arch]
     check = functools.partial(tserve.check_flash_head_dim, cfg, torch.device(device),
                               chunk, kernel_mode.KernelMode().min_attn_q)
     if refused:
@@ -344,3 +380,13 @@ def test_serve_main_runs_gemma3_on_cpu(capsys):
                  "--batch", "2", "--prompt-len", "40", "--gen", "3", "--chunk", "16"])
     out = capsys.readouterr().out
     assert "2 seqs, 6 tokens" in out and "gemma3-4b" in out
+
+
+def test_serve_main_runs_qwen3_moe_on_cpu(capsys):
+    """The README's qwen3-moe command: 20-token prompts in 16-row chunks
+    (the 4-row tails routed with capacity 4) and 2-slot decode."""
+    tserve.main(["--arch", "qwen3_moe_30b_a3b", "--smoke", "--device", "cpu",
+                 "--kernels", "--batch", "2", "--prompt-len", "20", "--gen", "3",
+                 "--chunk", "16"])
+    out = capsys.readouterr().out
+    assert "2 seqs, 6 tokens" in out and "qwen3-moe-30b-a3b" in out
