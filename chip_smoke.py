@@ -29,11 +29,22 @@ Phases, each of which exits nonzero on failure:
    depth, at head dims 64, 128 and 256);
 3. serve — ``granite_3_2b`` at full width in bf16 with seeded random
    weights through ``ContinuousEngine`` (chunk 256, 4 slots, 8 requests of
-   256-1024 prompt tokens, 32 new tokens each), with every kernel's launch
-   count set to 0 just before that run and read just after, one
-   ``chunk_step`` with the kernels held against the same step with them
-   disabled and against f32 weights, and a profile of one chunk tick and
-   one decode tick;
+   256-1024 prompt tokens, 32 new tokens each), served twice by one
+   engine: first with decode ticks as eager ops (``cuda_graphs=False``),
+   then, after ``reset``, as replays of captured CUDA graphs, the main
+   path, whose greedy tokens must equal the eager run's.  Around each run
+   every kernel's launch count is set to 0 just before and read just
+   after, with the same exact expectations; both walls and tok/s, the
+   graphs captured, their capture seconds and their pool's bytes are
+   printed.  Then one ``chunk_step`` with the kernels held against the
+   same step with them disabled and against f32 weights, and a profile
+   of one chunk step and one decode step (eager), and through the engine
+   one decode tick and a 16-step ``_decode_k`` loop as graph replays,
+   and one replayed tick's logits against one eager tick's from the same
+   state (maximum absolute difference printed).  Capturing a graph
+   first runs one eager tick in sync debug mode "error" (a host sync in
+   the tick fails the run) and fails if a hand-written kernel launched
+   meanwhile: no kernel runs inside a decode tick at these shapes;
 4. serve — the same for ``falcon_mamba_7b`` at full width and depth
    (64 Mamba layers, d_model 4096), after granite's engine and weights
    are freed.  Every prefill chunk of that traffic has 32 rows or more,
@@ -86,6 +97,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 FLOP/s (data sheet)
 PEAK_F32 = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
@@ -726,14 +739,17 @@ def describe(cfg) -> str:
 
 def phase_serve(gpu: str, arch: str, path_kernels, relative_logits: bool = False,
                 check_offsets=(SERVE_CHUNK,)) -> dict:
-    """Serve SERVE_PLENS through ``arch`` at full width; returns the launch
-    count of every kernel in that run.  ``path_kernels``: the kernels the
-    path must have launched; ``relative_logits``: hold the chunk step's
-    kernels-vs-plain logits to bounds relative to the plain path's own
-    distance from f32 (see LOGIT_VS_F32); ``check_offsets``: the chunks
-    whose logits ``check_chunk_step`` compares."""
+    """Serve SERVE_PLENS through ``arch`` at full width, twice through one
+    engine: decode ticks eager, then (after ``reset``) as CUDA graph
+    replays, the main path, whose greedy tokens must equal the eager
+    run's.  Returns the launch count of every kernel in the graph run.
+    ``path_kernels``: the kernels the path must have launched;
+    ``relative_logits``: hold the chunk step's kernels-vs-plain logits to
+    bounds relative to the plain path's own distance from f32 (see
+    LOGIT_VS_F32); ``check_offsets``: the chunks whose logits
+    ``check_chunk_step`` compares."""
     from repro_torch.configs.registry import get_arch
-    from repro_torch.launch.serve import ContinuousEngine, Request
+    from repro_torch.launch.serve import ContinuousEngine
     from repro_torch.model import transformer as T
     from repro_torch.model.layers import make_generator
 
@@ -752,8 +768,50 @@ def phase_serve(gpu: str, arch: str, path_kernels, relative_logits: bool = False
     gen = make_generator(1, torch.device("cuda"))
     prompts = [torch.randint(2, cfg.vocab, (1, n), generator=gen, device="cuda")
                for n in SERVE_PLENS]
+    # the comparison run first, decode ticks as eager ops; then the main
+    # path, decode ticks as graph replays, after a reset of the same engine
     eng = ContinuousEngine(cfg, params, SERVE_SLOTS, max_len, chunk=SERVE_CHUNK,
-                           use_kernels=True, max_new=SERVE_GEN)
+                           use_kernels=True, max_new=SERVE_GEN, cuda_graphs=False)
+    eager = serve_traffic(eng, cfg, prompts, path_kernels, "eager decode")
+    eng.reset()
+    eng.cuda_graphs = True
+    graphs = serve_traffic(eng, cfg, prompts, path_kernels, "graph decode")
+    same = [a == b for a, b in zip(eager["tokens"], graphs["tokens"])]
+    print(f"  graph run's greedy tokens equal to the eager run's: {sum(same)} of "
+          f"{len(same)} requests")
+    require(all(same), f"{cfg.name}: graph decode's tokens differ from eager decode's "
+                       f"in requests {[i for i, ok in enumerate(same) if not ok]}")
+    require(graphs["launches"] == eager["launches"],
+            f"launches differ: eager {eager['launches']}, graphs {graphs['launches']}")
+    pool = eng.graph_pool_bytes()
+    print(f"  decode graphs: {len(eng.graphs)} captured (keys, kv buckets or 0 for any: "
+          f"{sorted(eng.graphs)}) in {eng.capture_seconds:.3f} s, shared pool "
+          f"{pool / 2**20:.1f} MiB; serve wall eager {eager['dt']:.3f} s, graphs "
+          f"{graphs['dt']:.3f} s ({graphs['dt'] - eng.capture_seconds:.3f} s without "
+          f"the captures); generated tok/s eager {eager['tok_s']:.1f}, graphs "
+          f"{graphs['tok_s']:.1f}")
+    print(f"  card: {gpu}")
+
+    # a longer prompt (drawn after the served ones) where the checked
+    # chunks reach past the served prompts
+    check_len = max(check_offsets) + SERVE_CHUNK
+    toks = prompts[0] if check_len <= SERVE_PLENS[0] else torch.randint(
+        2, cfg.vocab, (1, check_len), generator=gen, device="cuda")
+    check_chunk_step(cfg, params, toks, max(max_len, check_len + 64), relative_logits,
+                     check_offsets)
+    profile_steps(cfg, params, max_len, eng)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {cfg.name} phase peak device memory {peak:.2f} GiB")
+    return graphs["launches"]
+
+
+def serve_traffic(eng, cfg, prompts, path_kernels, label: str) -> dict:
+    """Serve ``prompts`` through ``eng`` with every kernel's launch count
+    set to 0 just before and read just after; check the requests and the
+    counts.  Returns the tokens, wall, tok/s and launches."""
+    from repro_torch.launch.serve import Request
+    from repro_torch.model import transformer as T
+
     reqs = [Request(i, p) for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
@@ -797,7 +855,7 @@ def phase_serve(gpu: str, arch: str, path_kernels, relative_logits: bool = False
               f"x {cfg.n_layers} layers x 3 = {full_chunks * cfg.n_layers * 3})")
     ntok = SERVE_GEN * len(reqs)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  {len(reqs)} requests, prompts {list(SERVE_PLENS)}, {ntok} new "
+    print(f"  {label}: {len(reqs)} requests, prompts {list(SERVE_PLENS)}, {ntok} new "
           f"tokens in {dt:.3f} s: {ntok / dt:.1f} generated tok/s, "
           f"{(sum(SERVE_PLENS) + ntok) / dt:.1f} total tok/s")
     print(f"  ticks {ticks} (decode {eng.ticks_decode}, prefill "
@@ -805,28 +863,24 @@ def phase_serve(gpu: str, arch: str, path_kernels, relative_logits: bool = False
           f"{eng.overlap_ratio():.3f}, page {eng.page}, peak memory "
           f"{peak:.2f} GiB, launches {launches}")
     print(f"  first tokens: {[r.generated[:4] for r in reqs[:3]]}")
-    print(f"  card: {gpu}")
-
-    # a longer prompt (drawn after the served ones) where the checked
-    # chunks reach past the served prompts
-    check_len = max(check_offsets) + SERVE_CHUNK
-    toks = prompts[0] if check_len <= SERVE_PLENS[0] else torch.randint(
-        2, cfg.vocab, (1, check_len), generator=gen, device="cuda")
-    check_chunk_step(cfg, params, toks, max(max_len, check_len + 64), relative_logits,
-                     check_offsets)
-    profile_steps(cfg, params, max_len)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  {cfg.name} phase peak device memory {peak:.2f} GiB")
-    return launches
+    return dict(tokens=[r.generated for r in reqs], dt=dt, tok_s=ntok / dt,
+                launches=launches)
 
 
-def profile_steps(cfg, params, max_len) -> None:
+PROFILE_LENS = (700, 300, 900, 512)
+PROFILE_KV = 1024
+
+
+def profile_steps(cfg, params, max_len, eng) -> None:
     """Where a tick's time goes: host wall time (synchronized) against
     the device's busy time (sum of kernel times from ``torch.profiler``)
-    for one prefill chunk and one decode step with the kernels on."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    for one prefill chunk and one decode step with the kernels on, both
+    eager; then, through the serve engine ``eng`` (graphs on) at the
+    same slot lengths, one decode tick and a 16-step ``_decode_k`` loop
+    as graph replays, with the device span between CUDA events beside
+    the busy time.  Each engine row starts from the same state and puts
+    it back after.  Last, one replayed tick's logits against one eager
+    tick's from the same state."""
     from repro_torch.model import transformer as T
     from repro_torch.model.kernel_mode import kernel_mode
     from repro_torch.model.layers import make_generator
@@ -836,45 +890,81 @@ def profile_steps(cfg, params, max_len) -> None:
     cache = T.init_cache(cfg, SERVE_SLOTS, max_len, dev)
     chunk = torch.randint(2, cfg.vocab, (1, SERVE_CHUNK), generator=gen, device=dev)
     tok = torch.randint(2, cfg.vocab, (SERVE_SLOTS, 1), generator=gen, device=dev)
-    lens = torch.tensor([700, 300, 900, 512], device=dev)
+    lens = torch.tensor(PROFILE_LENS, device=dev)
     act = torch.ones(SERVE_SLOTS, dtype=torch.bool, device=dev)
+    eng.reset()
+    eng.toks.copy_(tok)
+    eng.lens.copy_(lens)
+    eng._active.fill_(True)
+    kv = PROFILE_KV
     steps = {
-        "chunk step (256 rows at offset 512, kv 768)": lambda: T.chunk_step(
-            params, cfg, chunk, T.cache_slot_view(cache, 1), 512, 768),
-        "decode step (4 slots, kv 1024)": lambda: T.serve_decode_step(
-            params, cfg, tok, cache, lens, act, 1024),
+        "chunk step (256 rows at offset 512, kv 768)": (lambda: T.chunk_step(
+            params, cfg, chunk, T.cache_slot_view(cache, 1), 512, 768), 5, False),
+        f"decode step (4 slots, kv {kv})": (lambda: T.serve_decode_step(
+            params, cfg, tok, cache, lens, act, kv), 5, False),
+        f"decode step, graph replay (4 slots, kv {kv})": (
+            lambda: eng._decode_tick(kv), 5, True),
+        # 16 steps x (1 + 2 + 2 + 2) calls from PROFILE_LENS stay under kv
+        f"16-step decode loop, graph replay (4 slots, kv {kv})": (
+            lambda: eng._decode_k(kv, 16), 2, True),
     }
-    reps = 5
     with kernel_mode(enabled=True):
-        for name, fn in steps.items():
+        for name, (fn, reps, graph) in steps.items():
+            with eng._state_kept():
+                profile_step(name, fn, reps, graph)
+        with eng._state_kept():
+            eng._decode_step(kv)
+            eager = (eng.logits.float(), eng.nxt.clone())
+        with eng._state_kept():
+            eng._decode_tick(kv)
+            replay = (eng.logits.float(), eng.nxt.clone())
+    torch.cuda.synchronize()
+    diff = float((eager[0] - replay[0]).abs().max())
+    print(f"  one decode tick at kv {kv} from the same state, replayed graph vs eager "
+          f"ops: logits {tuple(eager[0].shape)} max_abs_diff={diff:.3e}, next tokens "
+          f"equal: {torch.equal(eager[1], replay[1])}")
+
+
+def profile_step(name: str, fn, reps: int, graph: bool) -> None:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
             fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / reps * 1e3
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-            # kernel records only: a CPU op also carries the device time
-            # of the kernels it launched, which would count them twice
-            events = [e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA]
-            busy = sum(e.self_device_time_total for e in events) / reps / 1e3
-            require(busy > 0, f"{name}: the profiler saw no device time")
-            top = sorted(events, key=lambda e: e.self_device_time_total,
-                         reverse=True)[:6]
-            tops = "; ".join(f"{e.key[:48]} {e.self_device_time_total / reps / 1e3:.3f} ms"
-                             f" x{e.count // reps}" for e in top)
-            ours = "; ".join(
-                f"{_kernel_name(e.key)} {e.self_device_time_total / reps / 1e3:.3f} ms"
-                f" x{e.count // reps}" for e in events if "repro::" in e.key)
-            print(f"  {name}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
-                  f"({busy / wall:.1%}), idle {1 - busy / wall:.1%}; top: {tops}; "
-                  f"csrc kernels: {ours or 'none'}")
+        torch.cuda.synchronize()
+    # kernel records only: a CPU op also carries the device time of the
+    # kernels it launched, which would count them twice
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / reps / 1e3
+    # the events' span stands beside a replay's busy time in case the
+    # profiler does not see the kernels inside a graph
+    require(busy > 0 or graph, f"{name}: the profiler saw no device time")
+    span = ""
+    if graph:
+        # a replay is queued in microseconds, so the events bracket the
+        # graph's kernels back to back
+        s, e = _event(), _event()
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        span = f", device span {s.elapsed_time(e) / reps:.2f} ms"
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    tops = "; ".join(f"{e.key[:48]} {e.self_device_time_total / reps / 1e3:.3f} ms"
+                     f" x{e.count // reps}" for e in top)
+    ours = "; ".join(
+        f"{_kernel_name(e.key)} {e.self_device_time_total / reps / 1e3:.3f} ms"
+        f" x{e.count // reps}" for e in events if "repro::" in e.key)
+    seen = (f"device busy {busy:.2f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}"
+            if busy > 0 else "device busy not seen by the profiler")
+    print(f"  {name}: wall {wall:.2f} ms, {seen}{span}; top: {tops}; "
+          f"csrc kernels: {ours or 'none'}")
 
 
 def _kernel_name(key: str) -> str:

@@ -23,15 +23,27 @@ to the CPU, where the kernels' plain versions run.
   when it retires.  With ``use_kernels=True`` the layers route through
   the Hopper kernels (see :mod:`repro_torch.model.kernel_mode`).
 
-The reference fuses up to 16 steady-state decode steps into one
-``lax.scan`` dispatch; here they run as a loop of decode ticks with the
-same host bookkeeping.
+The reference jit-compiles each decode tick into one dispatch, with the
+cache and state donated, and fuses up to 16 steady-state decode steps
+into one ``lax.scan`` dispatch (``_decode_k``).  Here, on ``cuda``, a
+decode tick is the replay of a captured CUDA graph of
+:meth:`ContinuousEngine._decode_step`: one graph per kv bucket (the only
+shape that varies between decode ticks; one graph in all for a model
+without attention layers), captured at the bucket's first use into one
+shared memory pool.  Every state and cache tensor is written in place,
+so a graph's captured addresses stay valid across ticks.  Pure decode
+ticks, the decode half of a mixed tick and each of the k steps of the
+steady-state path replay it; ``_decode_k`` replays it k times with no
+host read between the replays.  Chunk ticks run eagerly.
+``ContinuousEngine(..., cuda_graphs=False)`` runs every decode tick as
+eager ops, the CPU's only path.
 """
 from __future__ import annotations
 
 import argparse
 import time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional
 
@@ -120,18 +132,22 @@ class ContinuousEngine:
 
     ``eos``-triggered stopping and ``sync=True`` (per-token latency
     measurement) read the new tokens once per tick; otherwise the loop
-    reads the device only when a request retires."""
+    reads the device only when a request retires.  ``cuda_graphs``
+    (default: on when the engine is on ``cuda``) replays each decode
+    tick from a captured graph; asking for graphs on the CPU raises."""
 
     def __init__(self, cfg, params, batch: int, max_len: int, *,
                  chunk: int = 16, page: Optional[int] = None,
                  use_kernels: bool = False, max_new: int = 16,
                  eos: Optional[int] = None, sync: bool = False,
-                 kernel_opts: Optional[Dict] = None):
+                 kernel_opts: Optional[Dict] = None,
+                 cuda_graphs: Optional[bool] = None):
         self.cfg, self.params = cfg, params
         self.device = dev = params["embed"].device
         self.batch, self.max_len = batch, max_len
         self.chunk, self.max_new, self.eos = chunk, max_new, eos
         self.sync = sync or eos is not None
+        self.cuda_graphs = dev.type == "cuda" if cuda_graphs is None else cuda_graphs
         # kernel_opts: extra KernelMode fields (threshold overrides for
         # small-shape parity tests; see model/kernel_mode.py)
         self._mode_kw = dict(enabled=use_kernels, **(kernel_opts or {}))
@@ -144,11 +160,16 @@ class ContinuousEngine:
         self.page = page or max(min(plan.tile["kk"], max_len), 8)
 
         self.cache = T.init_cache(cfg, batch, max_len, dev)
-        # device-resident decode state
+        # device-resident decode state, every tensor written in place so
+        # that a captured graph's addresses stay valid
         self.toks = torch.zeros((batch, 1), dtype=torch.long, device=dev)
         self.lens = torch.zeros((batch,), dtype=torch.long, device=dev)
         self.buf = torch.zeros((batch, max_new), dtype=torch.long, device=dev)
         self.pos = torch.zeros((batch,), dtype=torch.long, device=dev)
+        # the last decode tick's next tokens and logits
+        self.nxt = torch.zeros((batch,), dtype=torch.long, device=dev)
+        self.logits = torch.zeros((batch, cfg.vocab), dtype=params["embed"].dtype,
+                                  device=dev)
         self._rows = torch.arange(batch, device=dev)
         self.lengths = [0] * batch          # host mirror of lens
         self.gen_count = [0] * batch        # host mirror of pos
@@ -157,22 +178,133 @@ class ContinuousEngine:
         self.prefill_pos = [0] * batch
         self.queue: Deque[Request] = deque()
         self._active = torch.zeros((batch,), dtype=torch.bool, device=dev)
+        # decode graphs by kv bucket, all in one memory pool; a model
+        # without attention layers reads no kv bound, so one graph
+        # (key 0) serves every bucket
+        self.graphs: Dict[int, torch.cuda.CUDAGraph] = {}
+        self._attends = any(spec.mixer == "attn" for spec in T.layer_specs(cfg))
+        self.capture_seconds = 0.0
+        self._pool = None
         # tick accounting for the prefill/decode overlap ratio
         self.ticks = self.ticks_decode = self.ticks_prefill = 0
         self.ticks_overlap = 0
 
+    @property
+    def cuda_graphs(self) -> bool:
+        return self._cuda_graphs
+
+    @cuda_graphs.setter
+    def cuda_graphs(self, on: bool):
+        if on and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need an engine on cuda, not {self.device}; "
+                             "pass cuda_graphs=False or leave it unset")
+        self._cuda_graphs = on
+
     # -- device-side tick bodies ---------------------------------------------
-    def _decode_tick(self, kv: int) -> torch.Tensor:
+    def _decode_step(self, kv: int) -> None:
+        """One decode tick as device ops, every write in place: the body
+        of the reference's jitted ``_decode_tick`` and of each graph."""
         act = self._active
-        logits, self.cache = T.serve_decode_step(
+        # the cache is written in place
+        logits, _ = T.serve_decode_step(
             self.params, self.cfg, self.toks, self.cache, self.lens, act, kv)
         nxt = torch.argmax(logits, -1)                               # (b,)
-        self.toks = torch.where(act[:, None], nxt[:, None], self.toks)
+        self.logits.copy_(logits)
+        self.nxt.copy_(nxt)
+        self.toks.copy_(torch.where(act[:, None], nxt[:, None], self.toks))
         at = self.pos.clamp(max=self.buf.shape[1] - 1)
         self.buf[self._rows, at] = torch.where(act, nxt, self.buf[self._rows, at])
-        self.lens = self.lens + act
-        self.pos = self.pos + act
-        return nxt
+        self.lens.add_(act)
+        self.pos.add_(act)
+
+    def _decode_tick(self, kv: int) -> torch.Tensor:
+        """One decode tick: with graphs, a replay of kv bucket ``kv``'s
+        graph (captured at its first use), else eager ops.  Returns the
+        next-token buffer."""
+        if not self.cuda_graphs:
+            self._decode_step(kv)
+            return self.nxt
+        key = kv if self._attends else 0
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = self._capture(kv)
+        graph.replay()
+        return self.nxt
+
+    def _decode_k(self, kv: int, k: int) -> None:
+        """The reference's ``_decode_k``: k decode ticks at one kv bound,
+        with no host read between them."""
+        for _ in range(k):
+            self._decode_tick(kv)
+
+    def _decode_state(self) -> List[torch.Tensor]:
+        """What a decode tick advances: last tokens, lengths, token
+        buffer, positions, and every Mamba layer's conv tail and SSM
+        state.  The KV rows it writes sit at each slot's own length,
+        which the slot's next tick writes again before reading it."""
+        return [self.toks, self.lens, self.buf, self.pos] + [
+            lc[name] for lc in self.cache if "ssm" in lc for name in ("conv", "ssm")]
+
+    @contextmanager
+    def _state_kept(self):
+        """Put the decode state back as it was on entry when the block
+        exits."""
+        saved = [t.clone() for t in self._decode_state()]
+        try:
+            yield
+        finally:
+            for t, old in zip(self._decode_state(), saved):
+                t.copy_(old)
+
+    def _warm_up(self, kv: int) -> None:
+        """The eager tick that precedes a capture, with the state put
+        back after it, so that its advance is not engine progress.  On
+        the card it runs in sync debug mode "error": a host sync inside
+        the tick raises."""
+        with self._state_kept():
+            if self.device.type != "cuda":
+                self._decode_step(kv)
+                return
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self._decode_step(kv)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+
+    def _capture(self, kv: int) -> torch.cuda.CUDAGraph:
+        """Capture one decode tick at kv bound ``kv`` into the shared
+        pool, after a warm-up tick on the capture's side stream.  Raises
+        if a hand-written kernel launched meanwhile: a replay makes no
+        Python call, so its launch counter would not move."""
+        from ..kernels import launch_counts
+
+        dev = self.device
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        before = launch_counts()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            self._warm_up(kv)
+            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+                self._decode_step(kv)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        after = launch_counts()
+        if after != before:
+            raise RuntimeError(f"a hand-written kernel launched while the decode tick at "
+                               f"kv {kv} was captured ({before} -> {after})")
+        self.capture_seconds += time.perf_counter() - t0
+        return graph
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes held by the decode graphs' shared pool."""
+        if self._pool is None:
+            return 0
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == tuple(self._pool))
 
     def _chunk_tick(self, toks: torch.Tensor, off: int, slot: int, last: bool,
                     kv: int):
@@ -209,8 +341,8 @@ class ContinuousEngine:
 
     def _set_state(self, i: int, st: int):
         self.state[i] = st
-        self._active = torch.tensor([s == DECODE for s in self.state],
-                                    dtype=torch.bool, device=self.device)
+        # in place: the decode graphs read this buffer
+        self._active[i].fill_(st == DECODE)
 
     def _admit_free_slots(self):
         for i in range(self.batch):
@@ -260,8 +392,7 @@ class ContinuousEngine:
             k = 1 << (k.bit_length() - 1)
             if k > 1:
                 kv = self._bucket(max(self.lengths[i] for i in decoding) + k)
-                for _ in range(k):
-                    self._decode_tick(kv)
+                self._decode_k(kv, k)
                 self.ticks += k - 1
                 self.ticks_decode += k
                 for i in decoding:
@@ -346,11 +477,13 @@ class ContinuousEngine:
         return n
 
     def reset(self):
-        """Back to the post-init state."""
+        """Back to the post-init state, zeroing in place, so the captured
+        graphs stay valid and are kept."""
         for lc in self.cache:
             for t in lc.values():
                 t.zero_()
-        for t in (self.toks, self.lens, self.buf, self.pos):
+        for t in (self.toks, self.lens, self.buf, self.pos, self.nxt,
+                  self.logits, self._active):
             t.zero_()
         b = self.batch
         self.lengths = [0] * b
@@ -359,7 +492,6 @@ class ContinuousEngine:
         self.slots = [None] * b
         self.prefill_pos = [0] * b
         self.queue.clear()
-        self._active = torch.zeros((b,), dtype=torch.bool, device=self.device)
         self.ticks = self.ticks_decode = self.ticks_prefill = 0
         self.ticks_overlap = 0
 
@@ -441,6 +573,10 @@ def main(argv=None):
             ceng.submit(r)
         ceng.run()
         print(f"overlap ratio: {ceng.overlap_ratio():.2f}, page={ceng.page}")
+        if ceng.cuda_graphs:
+            print(f"decode graphs: {len(ceng.graphs)} captured in "
+                  f"{ceng.capture_seconds:.2f} s, pool "
+                  f"{ceng.graph_pool_bytes() / 2**20:.1f} MiB")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

@@ -11,8 +11,9 @@ helpers, ``_stack_walk``, ``chunk_step``, ``serve_decode_step``,
   for ``lax.scan``; here a Python loop walks the layers, and
   :mod:`repro_torch.bridge` maps stacked slot ``s``, repeat ``r`` to
   layer ``r·period + s``.
-* Cache updates are in place; the step functions return the cache they
-  were given, so callers read as in the reference.
+* Cache updates are in place (the KV rows, and in
+  :func:`serve_decode_step` the Mamba states too); the step functions
+  return the cache they were given, so callers read as in the reference.
 * Sharding annotations and ``gather_params_for_compute`` are no-ops on
   one device and are dropped.
 
@@ -316,10 +317,12 @@ def _serve_decode_layer(p, spec: LayerSpec, cfg: ArchConfig, x, cache,
                                            cache["ssm"])
         # the recurrent states are the carry of an in-flight prefill: a
         # garbage decode update would corrupt its next chunk, so inactive
-        # slots keep theirs
+        # slots keep theirs.  Written into the cache's own tensors, as
+        # the KV rows are, so the state keeps its storage across ticks
         sel = active[:, None, None]
-        nc = {"conv": torch.where(sel, conv, cache["conv"]),
-              "ssm": torch.where(sel, ssm_st, cache["ssm"])}
+        cache["conv"].copy_(torch.where(sel, conv, cache["conv"]))
+        cache["ssm"].copy_(torch.where(sel, ssm_st, cache["ssm"]))
+        nc = cache
     return _ffn(p, spec, cfg, x + h), nc
 
 
