@@ -66,7 +66,26 @@ Phases, each of which exits nonzero on failure:
    them, as in the reference, and no path of this model takes the
    matmul kernel.  The chunk-step check prints how many (token, k)
    expert picks differ between its runs, and the kernels' distance from
-   the plain run when they take the plain run's picks.
+   the plain run when they take the plain run's picks;
+7. train — the training path (``transformer.lm_loss``, ``train.steps``,
+   ``optim.adamw``, ``train.checkpoint``, ``Trainer``) on
+   ``granite_3_2b``, after qwen3-moe's engine and weights are freed, with
+   the kernel mode off, as the reference trains: (a) two train steps in
+   f32 at full width and 2 layers (batch 2, seq 128) on the card and on
+   the CPU from the same weights and batches, the losses and gradient
+   norms held together; (b) the ``Trainer`` at full width and depth in
+   bf16 (batch 8, seq 256, ``REMAT="full"``) for 8 steps, every loss
+   and gradient norm finite and the last loss at least 0.05 below the
+   first, with the medians over steps 2-8 of step wall, tokens/s, the
+   model FLOPs share (6·N·tokens per step against the bf16 peak), the
+   forward+backward and AdamW device spans (CUDA events; the update
+   against its bytes bound), one step's device busy against its wall
+   (profiler) and peak memory; then two steps with ``REMAT="none"``;
+   (c) two steps, ``save``, ``restore`` into a fresh ``Trainer`` and a
+   third step, at full width and 2 layers, against three steps without
+   the interruption: loss and gradient norm within 1e-6, and whether
+   they and every parameter are bit-identical.  No kernel launch count
+   may move in this phase.
 
 The chunk-step check carries the cache each chunk returns into the next
 (each Mamba state copied, so no view of a whole chunk's f32 states stays
@@ -86,7 +105,9 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -752,6 +773,7 @@ def phase_serve(gpu: str, arch: str, path_kernels, relative_logits: bool = False
     from repro_torch.launch.serve import ContinuousEngine
     from repro_torch.model import transformer as T
     from repro_torch.model.layers import make_generator
+    from repro_torch.tree import leaves
 
     cfg = get_arch(arch)
     max_len = max(SERVE_PLENS) + SERVE_GEN + 32
@@ -761,7 +783,7 @@ def phase_serve(gpu: str, arch: str, path_kernels, relative_logits: bool = False
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
     print(f"[serve] {cfg.name}: {describe(cfg)}, vocab {cfg.vocab}, {cfg.dtype}: "
           f"{n_params / 1e9:.3f} B parameters, init {time.perf_counter() - t0:.1f} s")
 
@@ -1031,7 +1053,8 @@ class F32Layers:
         self.layers = layers
 
     def __iter__(self):
-        return (_to_f32(lp) for lp in self.layers)
+        from repro_torch.tree import map_tree
+        return (map_tree(torch.Tensor.float, lp) for lp in self.layers)
 
 
 @contextmanager
@@ -1093,23 +1116,242 @@ def rms(x) -> float:
     return float(x.pow(2).mean().sqrt())
 
 
-def _to_f32(tree):
-    if isinstance(tree, dict):
-        return {k: _to_f32(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_f32(v) for v in tree]
-    return tree.float()
+TRAIN_STEPS = 8
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+def phase_train(gpu: str) -> None:
+    """Phase 7 (see the module docstring)."""
+    gc.collect()     # the previous phase's engine and weights
+    torch.cuda.empty_cache()
+    mods = kernel_modules()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    train_parity()
+    train_full(gpu)
+    train_restore()
+    launches = {name: mod.LAUNCHES for name, mod in mods.items()}
+    print(f"  kernel launches in the train phase: {launches}")
+    require(all(n == 0 for n in launches.values()),
+            f"a kernel was launched on the training path: {launches}")
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def train_parity() -> None:
+    """(a) Two f32 train steps on the card and on the CPU from the same
+    weights (drawn on the CPU, copied to the card) and the same batches.
+    Elementwise parameters are not compared: Adam's first step moves each
+    by about lr·sign(g), and entries with g ≈ 0 may take either sign."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.model import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.tree import leaves, map_tree
+
+    cfg = get_arch("granite_3_2b").scaled(n_layers=2, dtype="float32")
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=2, seed=0))
+    t0 = time.perf_counter()
+    cpu = T.init_params(cfg, seed=0, device="cpu")
+    runs = {}
+    for dev, params in (("cuda", map_tree(lambda t: t.to("cuda"), cpu)), ("cpu", cpu)):
+        for t in leaves(params):
+            t.requires_grad_(True)
+        step, state = make_train_step(cfg, opt, 1), adamw.init(params)
+        out = []
+        for s in range(2):
+            batch = {k: torch.from_numpy(v).to(dev, torch.long)
+                     for k, v in data.batch(s).items()}
+            _, _, m = step(params, state, batch)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[dev] = out
+        del params, state, step
+    (l1, g1), (l2, _) = runs["cuda"]
+    (c1, h1), (c2, _) = runs["cpu"]
+    e1, eg, e2 = _rel(l1, c1), _rel(g1, h1), _rel(l2, c2)
+    ok = e1 <= 1e-4 and eg <= 1e-3 and e2 <= 1e-3
+    print(f"[train] (a) f32 parity, {cfg.name} at full width, 2 layers, batch 2, seq "
+          f"128, card vs CPU: step 1 loss {l1:.7f} vs {c1:.7f} (rel {e1:.2e}, tol 1e-4), "
+          f"grad_norm {g1:.7f} vs {h1:.7f} (rel {eg:.2e}, tol 1e-3); step 2 loss "
+          f"{l2:.7f} vs {c2:.7f} (rel {e2:.2e}, tol 1e-3) {'PASS' if ok else 'FAIL'} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    require(ok, "train step on the card disagrees with the CPU")
+
+
+@contextmanager
+def timed_updates(marks: list):
+    """Record a CUDA event before and after every ``adamw.update`` inside
+    the block, appended to ``marks`` as pairs."""
+    from repro_torch.optim import adamw
+
+    update = adamw.update
+
+    def timed(*args, **kw):
+        s, e = _event(), _event()
+        s.record()
+        out = update(*args, **kw)
+        e.record()
+        marks.append((s, e))
+        return out
+    adamw.update = timed
+    try:
+        yield
+    finally:
+        adamw.update = update
+
+
+def train_full(gpu: str) -> None:
+    """(b) The ``Trainer`` on ``granite_3_2b`` at full width and depth."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.model import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import Trainer, TrainConfig
+    from repro_torch.tree import leaves
+
+    cfg = get_arch("granite_3_2b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    T.REMAT = "full"
+    tr = Trainer(TrainConfig(arch=cfg, total_steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                             seq_len=TRAIN_SEQ, log_every=1, device="cuda",
+                             opt=AdamWConfig(lr=3e-4, warmup_steps=2,
+                                             total_steps=TRAIN_STEPS)))
+    torch.cuda.synchronize()
+    params = leaves(tr.params)
+    n = sum(p.numel() for p in params)
+    # AdamW's bytes: each parameter read and written, its gradient read by
+    # the norm and by the update, m and v read and written (f32)
+    upd_bytes = sum(p.numel() * (4 * p.element_size() + 16) for p in params)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] (b) {cfg.name}: {describe(cfg)}, vocab {cfg.vocab}, {cfg.dtype}: "
+          f"{n / 1e9:.3f} B parameters, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+          f"REMAT={T.REMAT}, init {time.perf_counter() - t0:.1f} s")
+
+    walls, fb, upd = [], [], []
+    for step in range(TRAIN_STEPS):
+        marks = []
+        start = _event()
+        t1 = time.perf_counter()
+        start.record()
+        with timed_updates(marks):
+            tr.run_step(step)
+        walls.append(time.perf_counter() - t1)        # run_step reads the metrics
+        fb.append(start.elapsed_time(marks[0][0]))
+        upd.append(marks[0][0].elapsed_time(marks[0][1]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in tr.history]
+    norms = [h["grad_norm"] for h in tr.history]
+    finite = all(map(math.isfinite, losses + norms))
+    wall, fb_ms, upd_ms = (statistics.median(x[1:]) for x in (walls, fb, upd))
+    upd_bound, _ = bound_ms(upd_bytes, 0.0)
+    mfu = 6.0 * n * tokens / wall / PEAK_BF16
+    print(f"  losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 3) for x in norms]}")
+    print(f"  medians over steps 2-{TRAIN_STEPS}: step wall {wall * 1e3:.1f} ms, "
+          f"{tokens / wall:.0f} tokens/s, model FLOPs share {mfu:.1%} (6·N·tokens over "
+          f"{PEAK_BF16 / 1e12:.0f} TFLOP/s); forward+backward {fb_ms:.1f} ms, AdamW update "
+          f"{upd_ms:.1f} ms against a bound of {upd_bound:.1f} ms ({upd_bytes / 1e9:.1f} GB "
+          f"at {PEAK_BYTES / 1e12:.2f} TB/s); peak device memory {peak:.2f} GiB; card: {gpu}")
+    profile_train_step(tr, TRAIN_STEPS, wall * 1e3)
+    require(finite, f"non-finite loss or grad norm: {losses} {norms}")
+    require(losses[-1] <= losses[0] - 0.05,
+            f"the loss did not fall by 0.05 over {TRAIN_STEPS} steps: {losses}")
+
+    T.REMAT = "none"
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for step in range(TRAIN_STEPS, TRAIN_STEPS + 2):
+        t1 = time.perf_counter()
+        tr.run_step(step)
+        walls.append(time.perf_counter() - t1)
+    T.REMAT = "full"
+    print(f"  REMAT=none: step walls {[round(w * 1e3, 1) for w in walls]} ms, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(all(map(math.isfinite, [h["loss"] for h in tr.history[-2:]])),
+            "non-finite loss with REMAT=none")
+
+
+def profile_train_step(tr, step: int, wall_ms: float) -> None:
+    """One more train step under ``torch.profiler``: device busy (the sum
+    of kernel times) against the profiled step's wall and against
+    ``wall_ms``, the unprofiled steps' median; the largest kernels, and
+    the aten ops whose kernels take the most device time."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run_step(step)
+        wall = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    events = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    require(busy > 0, "train step: the profiler saw no device time")
+
+    def top(evs):
+        evs = sorted(evs, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+        return "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}"
+                         for e in evs)
+    ops = [e for e in avgs if e.device_type == DeviceType.CPU
+           and e.self_device_time_total > 0]
+    print(f"  one profiled step: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({busy / wall:.1%} of it; {busy / wall_ms:.1%} of the unprofiled median "
+          f"wall {wall_ms:.1f} ms), {sum(e.count for e in events)} kernels")
+    print(f"    top kernels: {top(events)}")
+    print(f"    top aten ops by their kernels' time: {top(ops)}")
+
+
+def train_restore() -> None:
+    """(c) Save after two steps, restore into a fresh ``Trainer``, take the
+    third step: against three steps without the interruption."""
+    import shutil
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import Trainer, TrainConfig
+    from repro_torch.tree import flatten
+
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cfg = get_arch("granite_3_2b").scaled(n_layers=2)
+
+    def trainer(**kw):
+        return Trainer(TrainConfig(arch=cfg, total_steps=3, global_batch=TRAIN_BATCH,
+                                   seq_len=TRAIN_SEQ, log_every=100, device="cuda",
+                                   opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=8),
+                                   **kw))
+    whole = trainer()
+    for s in range(3):
+        whole.run_step(s)
+    want = whole.history[-1]
+    first = trainer(ckpt_dir=ckpt)
+    for s in range(2):
+        first.run_step(s)
+    t0 = time.perf_counter()
+    first.save(2)
+    save_s = time.perf_counter() - t0
+    del first
+    second = trainer(ckpt_dir=ckpt)
+    t0 = time.perf_counter()
+    second.restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = second.run_step(2)
+    fw, fs = flatten(whole.params), flatten(second.params)
+    same_params = all(torch.equal(fw[k], fs[k]) for k in fw)
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs_ in os.walk(ckpt)
+               for f in fs_)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    e_loss, e_norm = _rel(got["loss"], want["loss"]), _rel(got["grad_norm"], want["grad_norm"])
+    ok = e_loss <= 1e-6 and e_norm <= 1e-6
+    print(f"[train] (c) restore, {cfg.name} at full width, 2 layers, bf16: step 3 after "
+          f"save/restore loss {got['loss']!r} vs {want['loss']!r} (rel {e_loss:.1e}), "
+          f"grad_norm {got['grad_norm']!r} vs {want['grad_norm']!r} (rel {e_norm:.1e}), "
+          f"tol 1e-6 {'PASS' if ok else 'FAIL'}; metrics bit-identical {got == want}, "
+          f"parameters after the step bit-identical {same_params}; checkpoint "
+          f"{size / 1e9:.2f} GB, save {save_s:.1f} s, restore {restore_s:.1f} s")
+    require(ok, "the restored run's third step differs from the uninterrupted one")
 
 
 def main() -> int:
@@ -1136,6 +1378,7 @@ def main() -> int:
         gemma3 = phase_serve(gpu, "gemma3_4b", ("matmul", "flash_attention"),
                              check_offsets=(SERVE_CHUNK, 1280))
         qwen3_moe = phase_serve(gpu, "qwen3_moe_30b_a3b", ("flash_attention",))
+        phase_train(gpu)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,5 +1,5 @@
-"""Bridge between the reference's parameter and cache pytrees (as numpy
-arrays) and the port's per-layer dictionaries.
+"""Bridge between the reference's parameter, optimizer-state and cache
+pytrees (as numpy arrays) and the port's per-layer dictionaries.
 
 The reference (``src/repro/model/transformer.py``) stacks the layers of
 each pattern slot for ``lax.scan``: ``decoder.slots[s]`` leaves carry a
@@ -26,6 +26,8 @@ import torch
 from .configs.registry import ArchConfig
 from .model.layers import device_of
 from .model.transformer import check_supported, pattern_period
+from .optim.adamw import AdamWState
+from .tree import map_tree
 
 
 def to_torch(a: Any, device="cuda") -> torch.Tensor:
@@ -42,14 +44,6 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
-
-
-def _map(fn: Callable, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 def _stack(trees: List[Any]):
@@ -88,10 +82,10 @@ def params_from_numpy(tree: Dict, cfg: ArchConfig, device="cuda") -> Dict:
     """The reference's ``init_params`` pytree (numpy leaves) → the port's
     parameters on ``device``."""
     layers = _unstack(tree["decoder"], cfg,
-                      lambda slot, r: _map(lambda a: np.asarray(a)[r], slot))
+                      lambda slot, r: map_tree(lambda a: np.asarray(a)[r], slot))
     conv = lambda a: to_torch(a, device)  # noqa: E731
     p = {"embed": conv(tree["embed"]), "final_ln": conv(tree["final_ln"]),
-         "layers": [_map(conv, lt) for lt in layers]}
+         "layers": [map_tree(conv, lt) for lt in layers]}
     if "lm_head" in tree:
         p["lm_head"] = conv(tree["lm_head"])
     return p
@@ -100,7 +94,7 @@ def params_from_numpy(tree: Dict, cfg: ArchConfig, device="cuda") -> Dict:
 def params_to_numpy(params: Dict, cfg: ArchConfig) -> Dict:
     """Inverse of :func:`params_from_numpy` (bf16 leaves as ``uint16``
     bits)."""
-    layers = [_map(to_numpy, lt) for lt in params["layers"]]
+    layers = [map_tree(to_numpy, lt) for lt in params["layers"]]
     tree = {"embed": to_numpy(params["embed"]),
             "final_ln": to_numpy(params["final_ln"]),
             "decoder": _restack(layers, cfg, [None] * pattern_period(cfg))}
@@ -109,13 +103,32 @@ def params_to_numpy(params: Dict, cfg: ArchConfig) -> Dict:
     return tree
 
 
+def opt_state_from_numpy(state, cfg: ArchConfig, device="cuda") -> AdamWState:
+    """The reference's ``AdamWState`` (numpy leaves; any ``(step, m, v)``
+    triple) → the port's.  m and v have the parameters' tree and take
+    the same slot ↔ layer mapping; ``step`` becomes an int32 scalar."""
+    step, m, v = state
+    return AdamWState(
+        torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                     device=device_of(device)),
+        params_from_numpy(m, cfg, device), params_from_numpy(v, cfg, device))
+
+
+def opt_state_to_numpy(state: AdamWState, cfg: ArchConfig) -> AdamWState:
+    """Inverse of :func:`opt_state_from_numpy`: numpy leaves in the
+    reference's tree (``AdamWState(*result)`` rebuilds the reference's
+    state)."""
+    return AdamWState(to_numpy(state.step), params_to_numpy(state.m, cfg),
+                      params_to_numpy(state.v, cfg))
+
+
 def cache_from_numpy(tree: Dict, cfg: ArchConfig, device="cuda") -> List[Dict]:
     """The reference's ``init_cache`` pytree → the port's per-layer
     cache; both have batch first within a layer."""
     layers = _unstack(tree, cfg,
-                      lambda slot, r: _map(lambda a: np.asarray(a)[r], slot))
-    return [_map(lambda a: to_torch(a, device), lc) for lc in layers]
+                      lambda slot, r: map_tree(lambda a: np.asarray(a)[r], slot))
+    return [map_tree(lambda a: to_torch(a, device), lc) for lc in layers]
 
 
 def cache_to_numpy(cache: List[Dict], cfg: ArchConfig) -> Dict:
-    return _restack([_map(to_numpy, lc) for lc in cache], cfg, [])
+    return _restack([map_tree(to_numpy, lc) for lc in cache], cfg, [])

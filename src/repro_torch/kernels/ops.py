@@ -2,6 +2,13 @@
 Hopper kernel, CPU tensors to its plain version.  Nothing else happens
 here — no fallback from one to the other.
 
+No kernel has a backward (the reference's Pallas kernels have no VJP
+either), so each wrapper refuses an input that requires grad while
+autograd records: on the CPU autograd would otherwise differentiate the
+plain version quietly, where the card's kernel cannot.  The check reads
+tensor flags only, so it costs no device work and holds inside a CUDA
+graph capture.
+
 Ports ``src/repro/kernels/ops.py`` and keeps its layouts: q is
 (b, s, h, d), k/v are (b, s, hkv, d), GQA has rep = h // hkv; the scans
 take a_bar/b_bar (b, s, di, st), c (b, s, st) and x/z (b, s, di).
@@ -19,6 +26,14 @@ from . import ref
 from . import scan_gate as _sg
 
 
+def _no_grad_through(*ts: Optional[torch.Tensor]) -> None:
+    """Refuse operands autograd would differentiate: no kernel has a backward."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in ts):
+        raise RuntimeError("the hand-written kernels have no backward: run the "
+                           "kernel mode only on inputs that do not require grad")
+
+
 def _on_cuda(x: torch.Tensor) -> bool:
     if x.device.type == "cuda":
         return True
@@ -28,6 +43,7 @@ def _on_cuda(x: torch.Tensor) -> bool:
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    _no_grad_through(a, b)
     return _mm.matmul(a, b) if _on_cuda(a) else ref.matmul_ref(a, b)
 
 
@@ -36,6 +52,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (b, s, h, d); k/v: (b, s_kv, hkv, d).  ``q_offset`` positions
     the q chunk for causal masking against a longer kv prefix (chunked
     prefill)."""
+    _no_grad_through(q, k, v)
     if _on_cuda(q):
         return _fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
@@ -43,6 +60,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def selective_scan(a_bar: torch.Tensor, b_bar: torch.Tensor,
                    c: torch.Tensor) -> torch.Tensor:
+    _no_grad_through(a_bar, b_bar, c)
     if _on_cuda(a_bar):
         return _ms.selective_scan(a_bar, b_bar, c)
     return ref.selective_scan_ref(a_bar, b_bar, c)
@@ -54,6 +72,7 @@ def scan_gate(a_bar: torch.Tensor, b_bar: torch.Tensor, c: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused selective scan + skip + SiLU gate with state carry.
     Returns (o (b, s, di) in x_skip's dtype, h_last (b, di, st) f32)."""
+    _no_grad_through(a_bar, b_bar, c, x_skip, d_skip, z, h0)
     if _on_cuda(a_bar):
         return _sg.scan_gate(a_bar, b_bar, c, x_skip, d_skip, z, h0=h0)
     return ref.scan_gate_ref(a_bar, b_bar, c, x_skip, d_skip, z, h0=h0)

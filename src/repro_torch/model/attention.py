@@ -3,8 +3,10 @@
 Ports the main-path functions of ``src/repro/model/attention.py``:
 ``_qkv``, ``_sdpa``, ``causal_mask``, ``attention``,
 ``decode_attention``, ``chunk_attention`` and ``paged_decode_attention``.
-Sliding-window layers keep their mask; ``_sdpa_chunked``, cross and
-non-causal attention and M-RoPE come with the families that need them.
+Sliding-window layers keep their mask.  ``_sdpa_chunked`` (the
+reference's ``ATTN_CHUNK``, which only its dry run sets) waits for a
+caller; cross and non-causal attention and M-RoPE come with the families
+that need them.
 
 The reference's functions are pure; here the cache updates are made in
 place (the returned cache tensors are the ones passed in), which saves a
@@ -88,7 +90,7 @@ def causal_mask(sq: int, window: int = 0, device=None) -> torch.Tensor:
 
 def attention(p, cfg: ArchConfig, x, positions, *, window: int = 0,
               return_kv: bool = False):
-    """Prefill self-attention (causal, optional sliding window)."""
+    """Training/prefill self-attention (causal, optional sliding window)."""
     q, k, v = _qkv(p, cfg, x, positions)
     sq = x.shape[1]
     md = mode()

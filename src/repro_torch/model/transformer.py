@@ -1,8 +1,9 @@
-"""Model assembly, serving half: init, KV cache, chunked prefill and
-ragged decode steps.
+"""Model assembly: init, the training forward and loss, KV cache,
+chunked prefill and ragged decode steps.
 
 Ports ``src/repro/model/transformer.py`` (``layer_specs``,
-``pattern_period``, ``init_params``, ``init_cache``, the cache-slot
+``pattern_period``, ``init_params``, ``REMAT``, ``_apply_layer``,
+``_run_stack``, ``forward``, ``lm_loss``, ``init_cache``, the cache-slot
 helpers, ``_stack_walk``, ``chunk_step``, ``serve_decode_step``,
 ``prefill`` and ``decode_step``).  Differences from the reference:
 
@@ -10,7 +11,9 @@ helpers, ``_stack_walk``, ``chunk_step``, ``serve_decode_step``,
   ``cache[l]``.  The reference stacks the layers of each pattern slot
   for ``lax.scan``; here a Python loop walks the layers, and
   :mod:`repro_torch.bridge` maps stacked slot ``s``, repeat ``r`` to
-  layer ``r·period + s``.
+  layer ``r·period + s``.  :func:`_run_stack` still puts each period's
+  layers under one activation checkpoint, as the reference remats its
+  scanned period body.
 * Cache updates are in place (the KV rows, and in
   :func:`serve_decode_step` the Mamba states too); the step functions
   return the cache they were given, so callers read as in the reference.
@@ -20,18 +23,22 @@ helpers, ``_stack_walk``, ``chunk_step``, ``serve_decode_step``,
 Two mixers are ported, attention and Mamba (``model/ssm.py``), each
 with a SwiGLU MLP, a mixture of experts or no FFN: dense decoders, the
 MoE decoders (qwen3-moe, llama4 with its shared expert), falcon-mamba
-and the jamba attention/Mamba interleave with its experts.  The steps
-drop MoE's aux loss, as the reference's serving steps do.  Any other
-layer kind (cross attention, encoders, frontends, M-RoPE) raises
+and the jamba attention/Mamba interleave with its experts.
+:func:`forward` sums MoE's f32 aux loss over the layers, as the
+reference's does; the serving steps drop it, as the reference's do.  Any
+other layer kind (cross attention, encoders, frontends, M-RoPE) raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.registry import ArchConfig
 from . import attention as ATT
@@ -41,6 +48,33 @@ from .layers import (device_of, dtype_of, embed, embed_init, make_generator,
                      rmsnorm, rmsnorm_init, unembed)
 
 Cache = List[Dict[str, torch.Tensor]]
+
+# Activation checkpointing policy for the layer stack ('none' | 'full' |
+# 'dots'), as in the reference.  'full' recomputes each period's layers
+# in backward and saves only the input of each period; 'dots' also saves
+# the outputs of the weight products (2-D matmuls), trading memory for
+# less recompute.
+REMAT = "full"
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """'dots': save what ``aten.mm`` returns, recompute the rest.  The
+    batched attention and expert einsums run as ``bmm`` and are
+    recomputed, as the reference's ``dots_with_no_batch_dims_saveable``
+    recomputes products with batch dimensions."""
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn):
+    if REMAT == "none":
+        return fn
+    kw = {}
+    if REMAT == "dots":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                   _save_weight_products)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 @dataclass(frozen=True)
@@ -145,12 +179,90 @@ def _head(params) -> torch.Tensor:
 
 
 def _ffn(p, spec: LayerSpec, cfg: ArchConfig, x):
+    """The layer's FFN on the residual stream: (x, MoE's f32 aux loss,
+    or None for a layer without experts).  The serving steps drop aux."""
     if spec.ffn == "mlp":
-        x = x + MLP.mlp(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps))
-    elif spec.ffn == "moe":
-        h, _ = MLP.moe(p["ffn"], cfg, rmsnorm(x, p["ln2"], cfg.norm_eps))
-        x = x + h
-    return x
+        return x + MLP.mlp(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps)), None
+    if spec.ffn == "moe":
+        h, aux = MLP.moe(p["ffn"], cfg, rmsnorm(x, p["ln2"], cfg.norm_eps))
+        return x + h, aux
+    return x, None
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def _apply_layer(p, spec: LayerSpec, cfg: ArchConfig, x, positions,
+                 collect: bool = False):
+    """One layer over the whole sequence: (x, aux, kv).  aux is MoE's f32
+    aux loss or None; kv the layer's decode cache with ``collect``, else
+    None."""
+    kv = None
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if spec.mixer == "attn":
+        r = ATT.attention(p["mixer"], cfg, h, positions, window=spec.window,
+                          return_kv=collect)
+        if collect:
+            h, (k, v) = r
+            kv = {"k": k, "v": v}
+        else:
+            h = r
+    else:
+        r = SSM.mamba(p["mixer"], cfg, h, return_state=collect)
+        if collect:
+            h, (conv, ssm_st) = r
+            kv = {"conv": conv, "ssm": ssm_st}
+        else:
+            h = r
+    x, aux = _ffn(p, spec, cfg, x + h)
+    return x, aux, kv
+
+
+def _run_stack(params, cfg: ArchConfig, x, positions):
+    """The decoder over the whole sequence: (x, aux summed over the layers
+    in f32).  Each pattern period's layers run as one body under
+    :func:`_maybe_remat`; the tail past the last full period runs
+    without, as in the reference."""
+    specs = check_supported(cfg)
+    layers = params["layers"]
+    period = pattern_period(cfg)
+    repeats = len(specs) // period
+
+    def run(x, aux, lo: int, hi: int):
+        for i in range(lo, hi):
+            x, a, _ = _apply_layer(layers[i], specs[i], cfg, x, positions)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    body = _maybe_remat(run)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(repeats):
+        x, aux = body(x, aux, r * period, (r + 1) * period)
+    return run(x, aux, repeats * period, len(specs))
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  tokens: (b, s).  Returns (logits
+    (b, s, vocab) in the model dtype, aux loss f32)."""
+    x = embed(tokens, params["embed"])
+    b, seq = tokens.shape
+    positions = torch.arange(seq, device=x.device)[None].expand(b, seq)
+    x, aux = _run_stack(params, cfg, x, positions)
+    x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    return unembed(x, _head(params)), aux
+
+
+def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy in f32 plus 0.01 · aux."""
+    logits, aux = forward(params, cfg, tokens)
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean() + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------
@@ -168,16 +280,8 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor
     positions = torch.arange(seq, device=x.device)[None].expand(b, seq)
     cache: Cache = []
     for p, spec in zip(params["layers"], specs):
-        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-        if spec.mixer == "attn":
-            h, (k, v) = ATT.attention(p["mixer"], cfg, h, positions,
-                                      window=spec.window, return_kv=True)
-            cache.append({"k": k, "v": v})
-        else:
-            h, (conv, ssm_st) = SSM.mamba(p["mixer"], cfg, h,
-                                          return_state=True)
-            cache.append({"conv": conv, "ssm": ssm_st})
-        x = _ffn(p, spec, cfg, x + h)
+        x, _, kv = _apply_layer(p, spec, cfg, x, positions, collect=True)
+        cache.append(kv)
     x = rmsnorm(x[:, -1:, :], params["final_ln"], cfg.norm_eps)
     return unembed(x[:, 0, :], _head(params)), cache
 
@@ -197,7 +301,7 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: Cache,
             h, conv, ssm_st = SSM.mamba_decode(p["mixer"], cfg, h,
                                                lc["conv"], lc["ssm"])
             nc = {"conv": conv, "ssm": ssm_st}
-        return _ffn(p, spec, cfg, x + h), nc
+        return _ffn(p, spec, cfg, x + h)[0], nc
 
     x, cache = _stack_walk(params, cfg, embed(token, params["embed"]),
                            cache, layer)
@@ -281,7 +385,7 @@ def _chunk_layer(p, spec: LayerSpec, cfg: ArchConfig, x, cache, offset: int,
         h, conv, ssm_st = SSM.mamba_chunk(p["mixer"], cfg, h, cache["conv"],
                                           cache["ssm"])
         nc = {"conv": conv, "ssm": ssm_st}
-    return _ffn(p, spec, cfg, x + h), nc
+    return _ffn(p, spec, cfg, x + h)[0], nc
 
 
 def chunk_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache: Cache,
@@ -323,7 +427,7 @@ def _serve_decode_layer(p, spec: LayerSpec, cfg: ArchConfig, x, cache,
         cache["conv"].copy_(torch.where(sel, conv, cache["conv"]))
         cache["ssm"].copy_(torch.where(sel, ssm_st, cache["ssm"]))
         nc = cache
-    return _ffn(p, spec, cfg, x + h), nc
+    return _ffn(p, spec, cfg, x + h)[0], nc
 
 
 def serve_decode_step(params, cfg: ArchConfig, token: torch.Tensor,
