@@ -19,7 +19,10 @@ Phases, each of which exits nonzero on failure:
    delay so no host latency falls between them (``time_ms``); beside the
    kernel and the library call stands the host's µs per call
    (``host_us``).  The matmul and flash kernels must give the same bits
-   on two launches with the same inputs.  The matmul cases include
+   on two launches with the same inputs, and flash the same bits again
+   with its offset from a device scalar, and as one slot (batch row 1) of
+   a larger cache with offset and row from device scalars, the serving
+   chunk's launch.  The matmul cases include
    gemma3's MLP shapes; the flash cases the ragged chunks granite's,
    qwen3-moe's and gemma3's traffic send (head dims 64, 128 and 256) and
    a gemma3 chunk over a 1536-row prefix; beside them
@@ -30,21 +33,29 @@ Phases, each of which exits nonzero on failure:
 3. serve — ``granite_3_2b`` at full width in bf16 with seeded random
    weights through ``ContinuousEngine`` (chunk 256, 4 slots, 8 requests of
    256-1024 prompt tokens, 32 new tokens each), served twice by one
-   engine: first with decode ticks as eager ops (``cuda_graphs=False``),
-   then, after ``reset``, as replays of captured CUDA graphs, the main
-   path, whose greedy tokens must equal the eager run's.  Around each run
-   every kernel's launch count is set to 0 just before and read just
-   after, with the same exact expectations; both walls and tok/s, the
-   graphs captured, their capture seconds and their pool's bytes are
-   printed.  Then one ``chunk_step`` with the kernels held against the
-   same step with them disabled and against f32 weights, and a profile
-   of one chunk step and one decode step (eager), and through the engine
-   one decode tick and a 16-step ``_decode_k`` loop as graph replays,
-   and one replayed tick's logits against one eager tick's from the same
-   state (maximum absolute difference printed).  Capturing a graph
-   first runs one eager tick in sync debug mode "error" (a host sync in
-   the tick fails the run) and fails if a hand-written kernel launched
-   meanwhile: no kernel runs inside a decode tick at these shapes;
+   engine: first with every tick as eager ops (``cuda_graphs=False``),
+   then, after ``reset``, with every decode and chunk tick a replay of a
+   captured CUDA graph, the main path, whose greedy tokens must equal the
+   eager run's and in which every chunk tick must be a replay.  Around
+   each run every kernel's launch count is set to 0 just before and read
+   just after, with the same exact expectations (a replay adds the
+   launches its capture recorded); both walls and tok/s, the graphs
+   captured (decode graphs by kv bucket, chunk graphs by chunk length and
+   kv bucket), their capture seconds and their pool's bytes are printed.
+   Then one ``chunk_step`` with the kernels held against the same step
+   with them disabled and against f32 weights, and a profile of one chunk
+   step and one decode step (eager), and through the engine one chunk
+   tick eager and as a replay, one decode tick and a 16-step
+   ``_decode_k`` loop as graph replays; one replayed decode tick's logits
+   against one eager tick's from the same state (maximum absolute
+   difference printed); and one chunk graph (128 rows, kv bucket 1024)
+   replayed at offsets 800 and 896 of a slot, each held bit for bit
+   against an eager chunk tick from the same state (last-row logits, the
+   slot's KV rows, lengths, tokens, token buffer and positions, and the
+   Mamba layers' conv and SSM states).  Capturing a graph first runs one
+   eager tick in sync debug mode "error" (a host sync in the tick fails
+   the run); a decode capture fails if a hand-written kernel launched:
+   none runs inside a decode tick at these shapes;
 4. serve — the same for ``falcon_mamba_7b`` at full width and depth
    (64 Mamba layers, d_model 4096), after granite's engine and weights
    are freed.  Every prefill chunk of that traffic has 32 rows or more,
@@ -479,8 +490,22 @@ def phase_flash(gen: torch.Generator) -> dict:
             f"rows={geo['rows']} stages={geo['stages']} blocks={geo['blocks']}",
             got, want, FA_TOL))
         same = torch.equal(got, again)
-        print(f"    two launches bit-identical: {same}")
-        require(same, f"flash b={b} c={c} kv_len={kv_len} d={d}: two launches differ")
+        # the descriptor from device scalars, and q as one slot of a
+        # batched cache (the serving chunk's launch), against the int
+        # offset's launch
+        off_t = torch.tensor(off, dtype=torch.int32, device="cuda")
+        row_t = torch.tensor(1, dtype=torch.int32, device="cuda")
+        kc, vc = (torch.randn((b + 2, kv_len, hkv, d), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(2))
+        kc[1:1 + b], vc[1:1 + b] = k, v
+        dev_same = torch.equal(fa.flash_attention(q, k, v, q_offset=off_t), got)
+        slot_same = torch.equal(fa.flash_attention(q, kc, vc, q_offset=off_t, kv_row=row_t),
+                                got)
+        torch.cuda.synchronize()
+        print(f"    two launches bit-identical: {same}; device q_offset: {dev_same}; "
+              f"as batch row 1 of {b + 2} with device q_offset and kv_row: {slot_same}")
+        require(same and dev_same and slot_same,
+                f"flash b={b} c={c} kv_len={kv_len} d={d}: launches differ")
         rows = off + torch.arange(c)
         pairs = int(torch.clamp(rows + 1, max=kv_len).sum()) * b * h
         mask = (off + torch.arange(c, device="cuda")[:, None]
@@ -738,6 +763,17 @@ def kernel_modules() -> dict:
             "selective_scan": msc}
 
 
+def collect_previous_phase() -> str:
+    """Free the previous phase's engine and weights; say what stays
+    allocated on the card (kernel A's per-stream split-K scratch, cached
+    flash descriptors, the L2 flush buffer), which the next phase's peak
+    memory includes."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB carried over from "
+            f"earlier phases")
+
+
 def describe(cfg) -> str:
     if cfg.family == "ssm":
         return (f"{cfg.n_layers} Mamba layers, d_model {cfg.d_model}, d_inner "
@@ -761,9 +797,9 @@ def describe(cfg) -> str:
 def phase_serve(gpu: str, arch: str, path_kernels, relative_logits: bool = False,
                 check_offsets=(SERVE_CHUNK,)) -> dict:
     """Serve SERVE_PLENS through ``arch`` at full width, twice through one
-    engine: decode ticks eager, then (after ``reset``) as CUDA graph
-    replays, the main path, whose greedy tokens must equal the eager
-    run's.  Returns the launch count of every kernel in the graph run.
+    engine: every tick eager, then (after ``reset``) every decode and
+    chunk tick a CUDA graph replay, the main path, whose greedy tokens
+    must equal the eager run's.  Returns the launch count of every kernel in the graph run.
     ``path_kernels``: the kernels the path must have launched;
     ``relative_logits``: hold the chunk step's kernels-vs-plain logits to
     bounds relative to the plain path's own distance from f32 (see
@@ -777,37 +813,41 @@ def phase_serve(gpu: str, arch: str, path_kernels, relative_logits: bool = False
 
     cfg = get_arch(arch)
     max_len = max(SERVE_PLENS) + SERVE_GEN + 32
-    gc.collect()     # the previous phase's engine and weights
-    torch.cuda.empty_cache()
+    carried = collect_previous_phase()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
     print(f"[serve] {cfg.name}: {describe(cfg)}, vocab {cfg.vocab}, {cfg.dtype}: "
-          f"{n_params / 1e9:.3f} B parameters, init {time.perf_counter() - t0:.1f} s")
+          f"{n_params / 1e9:.3f} B parameters, init {time.perf_counter() - t0:.1f} s; "
+          f"{carried}")
 
     gen = make_generator(1, torch.device("cuda"))
     prompts = [torch.randint(2, cfg.vocab, (1, n), generator=gen, device="cuda")
                for n in SERVE_PLENS]
-    # the comparison run first, decode ticks as eager ops; then the main
-    # path, decode ticks as graph replays, after a reset of the same engine
+    # the comparison run first, every tick as eager ops; then the main
+    # path, every decode and chunk tick a graph replay, after a reset of
+    # the same engine
     eng = ContinuousEngine(cfg, params, SERVE_SLOTS, max_len, chunk=SERVE_CHUNK,
                            use_kernels=True, max_new=SERVE_GEN, cuda_graphs=False)
-    eager = serve_traffic(eng, cfg, prompts, path_kernels, "eager decode")
+    eager = serve_traffic(eng, cfg, prompts, path_kernels, "eager ticks")
     eng.reset()
     eng.cuda_graphs = True
-    graphs = serve_traffic(eng, cfg, prompts, path_kernels, "graph decode")
+    graphs = serve_traffic(eng, cfg, prompts, path_kernels, "graph ticks")
     same = [a == b for a, b in zip(eager["tokens"], graphs["tokens"])]
     print(f"  graph run's greedy tokens equal to the eager run's: {sum(same)} of "
           f"{len(same)} requests")
-    require(all(same), f"{cfg.name}: graph decode's tokens differ from eager decode's "
+    require(all(same), f"{cfg.name}: the graph run's tokens differ from the eager run's "
                        f"in requests {[i for i, ok in enumerate(same) if not ok]}")
     require(graphs["launches"] == eager["launches"],
             f"launches differ: eager {eager['launches']}, graphs {graphs['launches']}")
     pool = eng.graph_pool_bytes()
+    chunk_s = eng.chunk_capture_seconds
     print(f"  decode graphs: {len(eng.graphs)} captured (keys, kv buckets or 0 for any: "
-          f"{sorted(eng.graphs)}) in {eng.capture_seconds:.3f} s, shared pool "
+          f"{sorted(eng.graphs)}) in {eng.capture_seconds - chunk_s:.3f} s; chunk graphs: "
+          f"{len(eng.chunk_graphs)} captured (keys, (c, kv bucket or 0 for any): "
+          f"{sorted(eng.chunk_graphs)}) in {chunk_s:.3f} s; shared pool "
           f"{pool / 2**20:.1f} MiB; serve wall eager {eager['dt']:.3f} s, graphs "
           f"{graphs['dt']:.3f} s ({graphs['dt'] - eng.capture_seconds:.3f} s without "
           f"the captures); generated tok/s eager {eager['tok_s']:.1f}, graphs "
@@ -838,6 +878,11 @@ def serve_traffic(eng, cfg, prompts, path_kernels, label: str) -> dict:
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize()
+
+    def replays():
+        return [sum(g.replays for g in graphs.values())
+                for graphs in (eng.graphs, eng.chunk_graphs)]
+    replays_before = replays()
     mods = kernel_modules()
     for mod in mods.values():
         mod.LAUNCHES = 0
@@ -846,12 +891,17 @@ def serve_traffic(eng, cfg, prompts, path_kernels, label: str) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {name: mod.LAUNCHES for name, mod in mods.items()}
+    n_replays = [b - a for a, b in zip(replays_before, replays())]
 
     require(all(r.done for r in reqs), "a request did not retire")
     require([len(r.generated) for r in reqs] == [SERVE_GEN] * len(reqs),
             f"token counts {[len(r.generated) for r in reqs]}")
     require(all(0 <= t < cfg.vocab for r in reqs for t in r.generated),
             "token id out of range")
+    want_replays = [eng.ticks_decode, eng.ticks_prefill] if eng.cuda_graphs else [0, 0]
+    require(n_replays == want_replays,
+            f"{label}: (decode, chunk) replays {n_replays}, expected {want_replays}: "
+            f"{'a tick ran as eager ops' if eng.cuda_graphs else 'a graph replayed'}")
     require(all(launches[k] > 0 for k in path_kernels),
             f"a kernel was not launched on the {cfg.name} path: {launches}")
     require(all(n == 0 for k, n in launches.items() if k not in path_kernels),
@@ -881,7 +931,8 @@ def serve_traffic(eng, cfg, prompts, path_kernels, label: str) -> dict:
           f"tokens in {dt:.3f} s: {ntok / dt:.1f} generated tok/s, "
           f"{(sum(SERVE_PLENS) + ntok) / dt:.1f} total tok/s")
     print(f"  ticks {ticks} (decode {eng.ticks_decode}, prefill "
-          f"{eng.ticks_prefill}, overlap {eng.ticks_overlap}), overlap ratio "
+          f"{eng.ticks_prefill}, overlap {eng.ticks_overlap}; graph replays, decode / "
+          f"chunk: {n_replays[0]} / {n_replays[1]}), overlap ratio "
           f"{eng.overlap_ratio():.3f}, page {eng.page}, peak memory "
           f"{peak:.2f} GiB, launches {launches}")
     print(f"  first tokens: {[r.generated[:4] for r in reqs[:3]]}")
@@ -897,12 +948,13 @@ def profile_steps(cfg, params, max_len, eng) -> None:
     """Where a tick's time goes: host wall time (synchronized) against
     the device's busy time (sum of kernel times from ``torch.profiler``)
     for one prefill chunk and one decode step with the kernels on, both
-    eager; then, through the serve engine ``eng`` (graphs on) at the
-    same slot lengths, one decode tick and a 16-step ``_decode_k`` loop
-    as graph replays, with the device span between CUDA events beside
-    the busy time.  Each engine row starts from the same state and puts
-    it back after.  Last, one replayed tick's logits against one eager
-    tick's from the same state."""
+    eager; then, through the serve engine ``eng`` at the same slot
+    lengths, one chunk tick as eager ops and as a graph replay, and one
+    decode tick and a 16-step ``_decode_k`` loop as graph replays, with
+    the device span between CUDA events beside a replay's busy time.
+    Each engine row starts from the same state and puts it back after.
+    Last, one replayed decode tick's logits against one eager tick's from
+    the same state, and :func:`check_chunk_replay`."""
     from repro_torch.model import transformer as T
     from repro_torch.model.kernel_mode import kernel_mode
     from repro_torch.model.layers import make_generator
@@ -919,9 +971,18 @@ def profile_steps(cfg, params, max_len, eng) -> None:
     eng.lens.copy_(lens)
     eng._active.fill_(True)
     kv = PROFILE_KV
+
+    def chunk_tick(graphs: bool):
+        def run():
+            eng.cuda_graphs = graphs
+            eng._chunk_tick(chunk, 512, 1, False, 768)
+        return run
     steps = {
         "chunk step (256 rows at offset 512, kv 768)": (lambda: T.chunk_step(
             params, cfg, chunk, T.cache_slot_view(cache, 1), 512, 768), 5, False),
+        "chunk tick, eager (engine: 256 rows at offset 512 of slot 1, kv 768)": (
+            chunk_tick(False), 5, False),
+        "chunk tick, graph replay (the same)": (chunk_tick(True), 5, True),
         f"decode step (4 slots, kv {kv})": (lambda: T.serve_decode_step(
             params, cfg, tok, cache, lens, act, kv), 5, False),
         f"decode step, graph replay (4 slots, kv {kv})": (
@@ -940,11 +1001,55 @@ def profile_steps(cfg, params, max_len, eng) -> None:
         with eng._state_kept():
             eng._decode_tick(kv)
             replay = (eng.logits.float(), eng.nxt.clone())
-    torch.cuda.synchronize()
-    diff = float((eager[0] - replay[0]).abs().max())
-    print(f"  one decode tick at kv {kv} from the same state, replayed graph vs eager "
-          f"ops: logits {tuple(eager[0].shape)} max_abs_diff={diff:.3e}, next tokens "
-          f"equal: {torch.equal(eager[1], replay[1])}")
+        torch.cuda.synchronize()
+        diff = float((eager[0] - replay[0]).abs().max())
+        print(f"  one decode tick at kv {kv} from the same state, replayed graph vs eager "
+              f"ops: logits {tuple(eager[0].shape)} max_abs_diff={diff:.3e}, next tokens "
+              f"equal: {torch.equal(eager[1], replay[1])}")
+        check_chunk_replay(cfg, eng, gen)
+
+
+def check_chunk_replay(cfg, eng, gen) -> None:
+    """One chunk graph, 128 rows at kv bucket 1024, replayed at offsets
+    800 and 896 of slot 2 (the second the prompt's last chunk), each
+    held bit for bit against an eager chunk tick from the same state:
+    the last row's logits, the slot's new KV rows, lengths, tokens, token
+    buffer and positions, and every Mamba layer's conv and SSM state.
+    Before each run the chunk's KV rows are zeroed, so the replay has to
+    write them itself; the rows before the chunk and the slot's Mamba
+    states hold random values."""
+    slot, c, kv = 2, 128, 1024
+    dev = torch.device("cuda")
+    toks = torch.randint(2, cfg.vocab, (1, c), generator=gen, device=dev)
+    for lc in eng.cache:
+        for t in lc.values():
+            t[slot].normal_(generator=gen)
+    key = (c, kv if eng._attends else 0)
+    replays = eng.chunk_graphs[key].replays if key in eng.chunk_graphs else 0
+    same = []
+    for off, last in ((800, False), (896, True)):
+        runs = []
+        for graphs in (False, True):
+            with eng._state_kept():
+                for lc in eng.cache:
+                    if "k" in lc:
+                        lc["k"][slot, off:off + c].zero_()
+                        lc["v"][slot, off:off + c].zero_()
+                eng.cuda_graphs = graphs
+                eng._chunk_tick(toks, off, slot, last, kv)
+                runs.append([eng.chunk_logits.clone(), eng.lens.clone(), eng.toks.clone(),
+                             eng.buf.clone(), eng.pos.clone()]
+                            + [lc[n][slot, off:off + c].clone() if n in ("k", "v")
+                               else lc[n][slot].clone() for lc in eng.cache for n in lc])
+        torch.cuda.synchronize()
+        same.append(all(torch.equal(a, b) for a, b in zip(*runs)))
+    n = eng.chunk_graphs[key].replays - replays
+    what = "conv and SSM states" if not eng._attends else "KV rows"
+    print(f"  chunk graph {key} replayed at offsets 800 and 896 of slot {slot} ({n} "
+          f"replays of one graph): last-row logits, lens/toks/buf/pos and the slot's "
+          f"{what} bit-identical to an eager chunk tick from the same state: {same}")
+    require(n == 2 and all(same), f"chunk graph {key} at two offsets: replays {n}, "
+                                  f"bit-identical to eager {same}")
 
 
 def profile_step(name: str, fn, reps: int, graph: bool) -> None:
@@ -1122,8 +1227,7 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 256
 
 def phase_train(gpu: str) -> None:
     """Phase 7 (see the module docstring)."""
-    gc.collect()     # the previous phase's engine and weights
-    torch.cuda.empty_cache()
+    print(f"[train] {collect_previous_phase()}")
     mods = kernel_modules()
     for mod in mods.values():
         mod.LAUNCHES = 0

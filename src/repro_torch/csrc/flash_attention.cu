@@ -4,15 +4,26 @@
 // l.31-68, `flash_attention` l.71-114): a (b·h, q_blocks, k_blocks) grid
 // with the k axis innermost, the running max, sum and accumulator in f32
 // VMEM scratch, blocks wholly above the (offset) diagonal skipped, and
-// `q_offset` a runtime scalar so one compiled kernel serves every prefill
-// chunk.  Here a block owns BQ query rows of one (batch, head) and loops
-// over its kv tiles itself; the f32 state stays in registers.
+// `q_offset` a runtime scalar in SMEM, read from a device array, so one
+// compiled kernel serves every prefill chunk.  Here a block owns BQ query
+// rows of one (batch, head) and loops over its kv tiles itself; the f32
+// state stays in registers.
 //
-// Layout: q (b, sq, h, d) and out (b, sq, h, d); k and v (b, kv, hkv, d),
-// each addressed through its own strides with d contiguous, so the kernel
-// reads a page-aligned prefix of the KV cache in place.  Query head h reads
-// kv head h / rep (GQA) directly: the repeat the TPU wrapper materializes
-// (ops.py:36-39) is never built.
+// Layout: q (b, sq, h, d) and out (b, sq, h, d); k and v (kb, kv, hkv, d)
+// with kb >= b, each addressed through its own strides with d contiguous, so
+// the kernel reads a page-aligned prefix of the KV cache in place.  Query
+// head h reads kv head h / rep (GQA) directly: the repeat the TPU wrapper
+// materializes (ops.py:36-39) is never built.
+//
+// The chunk's position is device data, as the reference's SMEM scalar is: a
+// two-int32 descriptor in device memory holds `q_offset` and the batch row
+// of k and v at which the query batch starts (a serving slot).  Each block
+// reads it once, so a CUDA graph that captured the launch serves every
+// chunk position and every slot: the caller writes the descriptor in place
+// before a replay.  The tensor maps span every batch row of the cache at
+// kv_len, so one map serves every slot of a kv bucket.  A descriptor that
+// points outside the cache (a negative offset, or rows past kb) traps: the
+// launch fails instead of reading rows that are not the slot's.
 //
 // What bounds it on an H100: at granite's serving chunk (one slot: b·h
 // 1·32, 256 query rows at offset 768 over a 1024-row prefix, d = 64) the
@@ -254,8 +265,9 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_kernel(const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v, const bf16* __restrict__ Q,
-                 bf16* __restrict__ O, int H, int rep, int sq, int kv_len, int q_offset,
-                 int causal, float scale_log2, Strides qs, Strides os, int stages) {
+                 bf16* __restrict__ O, const int* __restrict__ desc, int kv_batch, int H,
+                 int rep, int sq, int kv_len, int causal, float scale_log2, Strides qs,
+                 Strides os, int stages) {
   using G = Geometry<D>;
   constexpr int BK = G::BK;
   constexpr int KS = D / 16;    // k16 steps of S = Q·Kᵀ
@@ -276,6 +288,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h = bh - b * H;
   const int hk = h / rep;
   const int q0 = blockIdx.x * BQ;
+  // the descriptor: the chunk's position and the slot's batch row in k, v.
+  // Its load sits before the first TMA (which needs the row): 1-2% of the
+  // launch at the serving shapes with L2 flushed (PERF.md §6, row B)
+  const int q_offset = __ldg(desc);
+  const int kv_row = __ldg(desc + 1);
+  if (q_offset < 0 || kv_row < 0 || kv_row + int(gridDim.y) / H > kv_batch) __trap();
+  const int kb = kv_row + b;
 
   // kv tiles that hold any column this block's rows may see (at least one:
   // column 0 is visible to every row)
@@ -303,9 +322,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_arrive_expect_tx(&full[s], G::kSlotBytes);
 #pragma unroll
         for (int a = 0; a < D / kAtom; ++a) {
-          tma_load_4d(slot + a * BK * 128, &map_k, &full[s], a * kAtom, hk, t * BK, b);
+          tma_load_4d(slot + a * BK * 128, &map_k, &full[s], a * kAtom, hk, t * BK, kb);
           tma_load_4d(slot + G::kTileBytes + a * BK * 128, &map_v, &full[s], a * kAtom, hk,
-                      t * BK, b);
+                      t * BK, kb);
         }
         if (++s == stages) {
           s = 0;
@@ -465,8 +484,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int D>
 int launch(const CUtensorMap& map_k, const CUtensorMap& map_v, const bf16* q, bf16* o,
-           int B, int H, int rep, int sq, int kv_len, int q_offset, int causal, int stages,
-           Strides qs, Strides os, cudaStream_t stream) {
+           const int* desc, int B, int KB, int H, int rep, int sq, int kv_len, int causal,
+           int stages, Strides qs, Strides os, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return int(attr);
@@ -475,14 +494,15 @@ int launch(const CUtensorMap& map_k, const CUtensorMap& map_v, const bf16* q, bf
   if (stages < 2 || smem > size_t(kMaxSmem)) return -1;
   const float scale_log2 = 1.4426950408889634f / sqrtf(float(D));
   const dim3 grid((sq + BQ - 1) / BQ, B * H);
-  flash_kernel<D><<<grid, kThreads, smem, stream>>>(map_k, map_v, q, o, H, rep, sq, kv_len,
-                                                    q_offset, causal, scale_log2, qs, os,
+  flash_kernel<D><<<grid, kThreads, smem, stream>>>(map_k, map_v, q, o, desc, KB, H, rep, sq,
+                                                    kv_len, causal, scale_log2, qs, os,
                                                     stages);
   return int(cudaGetLastError());
 }
 
-// The 4-D map (d, hkv, kv, b) of a k or v prefix, read in boxes of one
-// 64-column swizzle atom × `bk` rows of one (batch, kv head).  The stride of
+// The 4-D map (d, hkv, kv, b) of the first kv_len rows of every batch row of
+// a k or v cache, read in boxes of one 64-column swizzle atom × `bk` rows of
+// one (batch, kv head).  The stride of
 // a dimension of size 1 is never used; it is set to the natural one, so a
 // view whose unused stride is odd still encodes.
 bool kv_map(const void* p, int B, int HKV, int kv_len, int D, int bk, long long sb,
@@ -501,21 +521,24 @@ bool kv_map(const void* p, int B, int HKV, int kv_len, int D, int bk, long long 
 
 extern "C" {
 
-// q, out: (B, sq, H, D); k, v: (B, kv_len, H/rep, D), strides in elements;
+// q, out: (B, sq, H, D); k, v: (KB, kv_len, H/rep, D) with KB >= B, strides in
+// elements; desc: two int32 in device memory, q_offset and the batch row of
+// k and v that query batch 0 reads (q batch i reads kv row desc[1] + i);
 // `stages` K/V slots in the load ring.  Returns 0 on success, a cudaError_t
 // code if the launch was refused, -1 for a head size or ring the kernel is
 // not built for (or k, v not 16-byte aligned with strides that are
-// multiples of 8, or a negative q_offset), and -2 if a TMA tensor map could
-// not be encoded.
-int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                               int H, int HKV, int sq, int kv_len, int D, int q_offset,
-                               int causal, int stages, long long qsb, long long qss,
-                               long long qsh, long long ksb, long long kss, long long ksh,
+// multiples of 8), and -2 if a TMA tensor map could not be encoded.  The
+// descriptor is not read here: the kernel checks it.
+int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
+                               const void* desc, int B, int KB, int H, int HKV, int sq,
+                               int kv_len, int D, int causal, int stages, long long qsb,
+                               long long qss, long long qsh, long long ksb, long long kss,
+                               long long ksh,
                                long long vsb, long long vss, long long vsh, long long osb,
                                long long oss, long long osh, void* stream) {
   using repro::bf16;
   using repro::Strides;
-  if (B < 1 || sq < 1 || kv_len < 1 || q_offset < 0 || HKV <= 0 || H % HKV) return -1;
+  if (B < 1 || KB < B || sq < 1 || kv_len < 1 || HKV <= 0 || H % HKV) return -1;
   if (D != 64 && D != 128 && D != 256) return -1;
   for (long long st : {ksb, kss, ksh, vsb, vss, vsh})
     if (st < 0 || st % 8) return -1;
@@ -523,21 +546,22 @@ int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void
     return -1;
   const int bk = D == 256 ? repro::Geometry<256>::BK : repro::Geometry<64>::BK;
   CUtensorMap map_k, map_v;
-  if (!repro::kv_map(k, B, HKV, kv_len, D, bk, ksb, kss, ksh, &map_k) ||
-      !repro::kv_map(v, B, HKV, kv_len, D, bk, vsb, vss, vsh, &map_v))
+  if (!repro::kv_map(k, KB, HKV, kv_len, D, bk, ksb, kss, ksh, &map_k) ||
+      !repro::kv_map(v, KB, HKV, kv_len, D, bk, vsb, vss, vsh, &map_v))
     return -2;
   const int rep = H / HKV;
   const Strides qs{qsb, qss, qsh}, os{osb, oss, osh};
   const bf16* qp = static_cast<const bf16*>(q);
   bf16* op = static_cast<bf16*>(o);
+  const int* dp = static_cast<const int*>(desc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 256)
-    return repro::launch<256>(map_k, map_v, qp, op, B, H, rep, sq, kv_len, q_offset, causal,
-                              stages, qs, os, s);
+    return repro::launch<256>(map_k, map_v, qp, op, dp, B, KB, H, rep, sq, kv_len, causal,
+                             stages, qs, os, s);
   if (D == 128)
-    return repro::launch<128>(map_k, map_v, qp, op, B, H, rep, sq, kv_len, q_offset, causal,
-                              stages, qs, os, s);
-  return repro::launch<64>(map_k, map_v, qp, op, B, H, rep, sq, kv_len, q_offset, causal,
+    return repro::launch<128>(map_k, map_v, qp, op, dp, B, KB, H, rep, sq, kv_len, causal,
+                             stages, qs, os, s);
+  return repro::launch<64>(map_k, map_v, qp, op, dp, B, KB, H, rep, sq, kv_len, causal,
                            stages, qs, os, s);
 }
 

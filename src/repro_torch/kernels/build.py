@@ -29,7 +29,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.repro_matmul_bf16.argtypes = [p] * 5 + [i] * 8 + [p]
     lib.repro_matmul_bf16.restype = i
-    lib.repro_flash_attention_bf16.argtypes = [p] * 4 + [i] * 9 + [ll] * 12 + [p]
+    lib.repro_flash_attention_bf16.argtypes = [p] * 5 + [i] * 9 + [ll] * 12 + [p]
     lib.repro_flash_attention_bf16.restype = i
     lib.repro_scan_gate.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.repro_scan_gate.restype = i

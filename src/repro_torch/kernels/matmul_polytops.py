@@ -10,7 +10,12 @@ the operands 16-byte aligned, which :func:`pad_operands` provides.  A
 split K needs an f32 workspace for the partial tiles and a zeroed integer
 counter per output tile, which every launch leaves zeroed again.  Both
 are kept per device and stream and reused: launches on one stream run
-one after another, and launches that could overlap never share them.
+one after another, and launches that could overlap never share them.  A
+CUDA graph holds the addresses its launches were captured with, and a
+stream's scratch is made anew (and the old one freed) when it must grow,
+so a launch that is being captured never takes the stream's scratch: it
+gets its own from the graph's memory pool, with its tickets zeroed by
+the graph before the launch, and it lives as long as the graph does.
 The plain version is :func:`repro_torch.kernels.ref.matmul_ref`.
 """
 from __future__ import annotations
@@ -31,10 +36,17 @@ _SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _split_scratch(device: torch.device, stream: int, workspace: int,
-                   tiles: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                   tiles: int, capturing: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The split-K scratch of ``stream``: an f32 workspace of at least
     ``workspace`` elements and ``tiles`` int tickets, zero between
-    launches (a buffer that grows is made anew, zeroed)."""
+    launches (a buffer that grows is made anew, zeroed).  ``capturing``:
+    the launch is being captured into a graph, which gets scratch of its
+    own (allocated in the graph's pool, tickets zeroed at each replay)
+    and leaves the stream's scratch alone."""
+    if capturing:
+        return (torch.empty(workspace, dtype=torch.float32, device=device),
+                torch.zeros(max(tiles, 1), dtype=torch.int32, device=device))
     key = (device.index, stream)
     ws, tickets = _SCRATCH.get(key, (None, None))
     if ws is None or ws.numel() < workspace or tickets.numel() < tiles:
@@ -91,7 +103,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ws = counters = None
     if geo["split"] > 1:
         ws, counters = _split_scratch(a.device, stream, geo["workspace"],
-                                      geo["blocks"] // geo["split"])
+                                      geo["blocks"] // geo["split"],
+                                      torch.cuda.is_current_stream_capturing())
     lib = build.load_library()
     rc = lib.repro_matmul_bf16(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                                None if ws is None else ws.data_ptr(),

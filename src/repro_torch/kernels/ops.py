@@ -48,14 +48,19 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
-    """q: (b, s, h, d); k/v: (b, s_kv, hkv, d).  ``q_offset`` positions
-    the q chunk for causal masking against a longer kv prefix (chunked
-    prefill)."""
+                    causal: bool = True, q_offset: _fa.Index = 0,
+                    kv_row: _fa.Index = 0) -> torch.Tensor:
+    """q: (b, s, h, d); k/v: (kb, s_kv, hkv, d), q's batch row i at k/v
+    row ``kv_row + i`` (kb = b and ``kv_row`` 0 unless q is one slot of a
+    batched cache).  ``q_offset`` positions the q chunk for causal masking
+    against a longer kv prefix (chunked prefill).  Both are ints or 0-d
+    integer tensors on q's device; a tensor is never read on the host."""
     _no_grad_through(q, k, v)
     if _on_cuda(q):
-        return _fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
-    return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+        return _fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                   kv_row=kv_row)
+    return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                   kv_row=kv_row)
 
 
 def selective_scan(a_bar: torch.Tensor, b_bar: torch.Tensor,

@@ -13,7 +13,7 @@ changes no bit.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -26,12 +26,14 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+                  causal: bool = True,
+                  q_offset: Union[int, torch.Tensor] = 0) -> torch.Tensor:
     """q: (bh, sq, d); k, v: (bh, sk, d).  The q rows sit at sequence
     positions ``q_offset + row`` (chunked prefill over a kv prefix of
-    ``sk`` rows); causal masking compares those positions with the kv
-    columns.  f32 softmax, output ``acc / max(l, 1e-30)`` as the flash
-    kernel computes it."""
+    ``sk`` rows; ``q_offset`` an int or a 0-d tensor on q's device);
+    causal masking compares those positions with the kv columns.  f32
+    softmax, output ``acc / max(l, 1e-30)`` as the flash kernel computes
+    it."""
     d = q.shape[-1]
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / (d ** 0.5)
     if causal:
@@ -47,12 +49,17 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+                        causal: bool = True, q_offset: Union[int, torch.Tensor] = 0,
+                        kv_row: Union[int, torch.Tensor] = 0) -> torch.Tensor:
     """Public layout of ``ops.flash_attention``: q (b, sq, h, d), k/v
-    (b, sk, hkv, d).  GQA repeats each kv head ``h // hkv`` times, as
-    ``src/repro/kernels/ops.py:36-39`` does, then runs
-    :func:`attention_ref` on the (b·h, s, d) layout."""
+    (kb, sk, hkv, d) with q's batch row i at k/v row ``kv_row + i``.
+    The b rows are gathered, GQA repeats each kv head ``h // hkv`` times,
+    as ``src/repro/kernels/ops.py:36-39`` does, then :func:`attention_ref`
+    runs on the (b·h, s, d) layout."""
     b, sq, h, d = q.shape
+    if isinstance(kv_row, torch.Tensor) or kv_row or k.shape[0] != b:
+        rows = kv_row + torch.arange(b, device=k.device)
+        k, v = k.index_select(0, rows), v.index_select(0, rows)
     rep = h // k.shape[2]
     if rep > 1:
         k = torch.repeat_interleave(k, rep, dim=2)

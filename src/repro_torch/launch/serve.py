@@ -23,20 +23,33 @@ to the CPU, where the kernels' plain versions run.
   when it retires.  With ``use_kernels=True`` the layers route through
   the Hopper kernels (see :mod:`repro_torch.model.kernel_mode`).
 
-The reference jit-compiles each decode tick into one dispatch, with the
-cache and state donated, and fuses up to 16 steady-state decode steps
-into one ``lax.scan`` dispatch (``_decode_k``).  Here, on ``cuda``, a
-decode tick is the replay of a captured CUDA graph of
-:meth:`ContinuousEngine._decode_step`: one graph per kv bucket (the only
-shape that varies between decode ticks; one graph in all for a model
-without attention layers), captured at the bucket's first use into one
-shared memory pool.  Every state and cache tensor is written in place,
-so a graph's captured addresses stay valid across ticks.  Pure decode
-ticks, the decode half of a mixed tick and each of the k steps of the
-steady-state path replay it; ``_decode_k`` replays it k times with no
-host read between the replays.  Chunk ticks run eagerly.
-``ContinuousEngine(..., cuda_graphs=False)`` runs every decode tick as
-eager ops, the CPU's only path.
+The reference jit-compiles each decode tick and each prefill-chunk tick
+into one dispatch, with the cache and state donated, and fuses up to 16
+steady-state decode steps into one ``lax.scan`` dispatch
+(``_decode_k``).  Here, on ``cuda``, every tick is the replay of
+captured CUDA graphs, each captured at its key's first use into one
+shared memory pool:
+
+* a decode tick replays a graph of :meth:`ContinuousEngine._decode_step`,
+  one per kv bucket (the only shape that varies between decode ticks;
+  one graph in all for a model without attention layers).  Pure decode
+  ticks, the decode half of a mixed tick and each of the k steps of the
+  steady-state path replay it; ``_decode_k`` replays it k times with no
+  host read between the replays;
+* a chunk tick replays a graph of :meth:`ContinuousEngine._chunk_step`,
+  one per (chunk length, kv bucket), the reference's jit keys (a model
+  without attention layers reads no kv bound: one per chunk length).
+  The chunk's offset, slot and last flag are device scalars and its
+  tokens a fixed buffer, all written in place before the replay, so one
+  graph serves every chunk position of every slot; the flash kernel
+  reads the offset and slot from the device.  A mixed tick is the decode
+  graph's replay and then the chunk graph's, on one stream.
+
+Every state and cache tensor is written in place and indexed by device
+scalars, so a graph's captured addresses stay valid across ticks.  A
+replay adds the kernel launches its capture recorded to the wrappers'
+counts.  ``ContinuousEngine(..., cuda_graphs=False)`` runs every tick as
+eager ops of the same bodies, the CPU's only path.
 """
 from __future__ import annotations
 
@@ -45,7 +58,7 @@ import time
 from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
 import torch
 
@@ -126,6 +139,23 @@ class ServeEngine:
 FREE, PREFILL, DECODE = 0, 1, 2
 
 
+class CapturedTick:
+    """A captured CUDA graph of one tick body and the kernel launches its
+    capture recorded.  A replay makes no Python call, so it adds those
+    launches to the wrappers' counts itself."""
+
+    def __init__(self, graph, launches: Dict[str, int]):
+        self.graph, self.launches = graph, launches
+        self.replays = 0
+
+    def replay(self) -> None:
+        from ..kernels import add_launches
+
+        self.graph.replay()
+        add_launches(self.launches)
+        self.replays += 1
+
+
 class ContinuousEngine:
     """Continuous-batching engine: per-request admission, chunked
     prefill interleaved with decode ticks, ragged paged KV.
@@ -133,8 +163,9 @@ class ContinuousEngine:
     ``eos``-triggered stopping and ``sync=True`` (per-token latency
     measurement) read the new tokens once per tick; otherwise the loop
     reads the device only when a request retires.  ``cuda_graphs``
-    (default: on when the engine is on ``cuda``) replays each decode
-    tick from a captured graph; asking for graphs on the CPU raises."""
+    (default: on when the engine is on ``cuda``) replays each decode and
+    chunk tick from a captured graph; asking for graphs on the CPU
+    raises."""
 
     def __init__(self, cfg, params, batch: int, max_len: int, *,
                  chunk: int = 16, page: Optional[int] = None,
@@ -178,13 +209,25 @@ class ContinuousEngine:
         self.prefill_pos = [0] * batch
         self.queue: Deque[Request] = deque()
         self._active = torch.zeros((batch,), dtype=torch.bool, device=dev)
-        # decode graphs by kv bucket, all in one memory pool; a model
-        # without attention layers reads no kv bound, so one graph
-        # (key 0) serves every bucket
-        self.graphs: Dict[int, torch.cuda.CUDAGraph] = {}
+        # the chunk tick's inputs, written in place before each tick: its
+        # tokens (the first c of a fixed buffer), offset, slot and last
+        # flag; and the logits of its last row
+        self._ctoks = torch.zeros((1, chunk), dtype=torch.long, device=dev)
+        self._coff = torch.zeros((), dtype=torch.int32, device=dev)
+        self._cslot = torch.zeros((), dtype=torch.int32, device=dev)
+        self._clast = torch.zeros((), dtype=torch.bool, device=dev)
+        self.chunk_logits = torch.zeros((cfg.vocab,), dtype=params["embed"].dtype,
+                                        device=dev)
+        # graphs, all in one memory pool: decode graphs by kv bucket and
+        # chunk graphs by (c, kv bucket); a model without attention layers
+        # reads no kv bound, so its keys have kv 0
+        self.graphs: Dict[int, CapturedTick] = {}
+        self.chunk_graphs: Dict[Tuple[int, int], CapturedTick] = {}
         self._attends = any(spec.mixer == "attn" for spec in T.layer_specs(cfg))
         self.capture_seconds = 0.0
+        self.chunk_capture_seconds = 0.0
         self._pool = None
+        self._capture_stream = None
         # tick accounting for the prefill/decode overlap ratio
         self.ticks = self.ticks_decode = self.ticks_prefill = 0
         self.ticks_overlap = 0
@@ -237,11 +280,71 @@ class ContinuousEngine:
         for _ in range(k):
             self._decode_tick(kv)
 
+    def _chunk_step(self, c: int, kv: int) -> None:
+        """One prefill-chunk tick as device ops, every write in place: the
+        body of the reference's jitted ``_chunk_tick`` and of each chunk
+        graph.  The chunk is ``_ctoks[:, :c]`` at offset ``_coff`` of slot
+        ``_cslot``, all on the device; the cache is read and written at
+        that row in place, and the slot's length, and on its last chunk
+        its first token, set by selects against the slot."""
+        off, slot = self._coff, self._cslot
+        sub = T.cache_slot_view(self.cache, slot)
+        logits, sub = T.chunk_step(self.params, self.cfg, self._ctoks[:, :c], sub,
+                                   off, kv)
+        T.cache_slot_write(self.cache, sub, slot)
+        sl = self._rows == slot
+        self.lens.copy_(torch.where(sl, off + c, self.lens))
+        # final chunk: its last-position logits seed decoding
+        last = logits[0, -1]
+        ctok = torch.argmax(last)
+        fin = sl & self._clast
+        self.toks.copy_(torch.where(fin[:, None], ctok, self.toks))
+        self.buf[:, 0] = torch.where(fin, ctok, self.buf[:, 0])
+        self.pos.copy_(torch.where(fin, 1, self.pos))
+        self.chunk_logits.copy_(last)
+
+    def _chunk_tick(self, toks: torch.Tensor, off: int, slot: int, last: bool,
+                    kv: int) -> None:
+        """One chunk tick: its tokens, offset, slot and last flag written
+        to the device, then with graphs a replay of the (c, kv) graph
+        (captured at its first use), else eager ops."""
+        c = toks.shape[1]
+        self._ctoks[:, :c].copy_(toks)
+        self._coff.fill_(off)
+        self._cslot.fill_(slot)
+        self._clast.fill_(last)
+        if not self.cuda_graphs:
+            self._chunk_step(c, kv)
+            return
+        key = (c, kv if self._attends else 0)
+        graph = self.chunk_graphs.get(key)
+        if graph is None:
+            graph = self.chunk_graphs[key] = self._capture(kv, c)
+        graph.replay()
+
+    def _mixed_tick(self, toks, off, slot, last, kv_d, kv_p) -> torch.Tensor:
+        # overlap tick: decode every active slot AND land one prefill
+        # chunk, with no host read between the two.  Decode runs first:
+        # its garbage write into the prefilling slot (row = that slot's
+        # current length) is overwritten by the chunk that follows.
+        nxt = self._decode_tick(kv_d)
+        self._chunk_tick(toks, off, slot, last, kv_p)
+        return nxt
+
+    def _step(self, kv: int, c: Optional[int]) -> None:
+        """The tick body a graph captures: the chunk tick of c rows at kv
+        bucket ``kv``, or with ``c`` None the decode tick."""
+        if c is None:
+            self._decode_step(kv)
+        else:
+            self._chunk_step(c, kv)
+
     def _decode_state(self) -> List[torch.Tensor]:
-        """What a decode tick advances: last tokens, lengths, token
-        buffer, positions, and every Mamba layer's conv tail and SSM
-        state.  The KV rows it writes sit at each slot's own length,
-        which the slot's next tick writes again before reading it."""
+        """What a tick advances: last tokens, lengths, token buffer,
+        positions, and every Mamba layer's conv tail and SSM state.  The
+        KV rows it writes are rows that the real tick writes again, with
+        the same values (a chunk's rows), or that a slot's next tick
+        writes before reading them (a decode row at the slot's length)."""
         return [self.toks, self.lens, self.buf, self.pos] + [
             lc[name] for lc in self.cache if "ssm" in lc for name in ("conv", "ssm")]
 
@@ -256,77 +359,81 @@ class ContinuousEngine:
             for t, old in zip(self._decode_state(), saved):
                 t.copy_(old)
 
-    def _warm_up(self, kv: int) -> None:
-        """The eager tick that precedes a capture, with the state put
-        back after it, so that its advance is not engine progress.  On
-        the card it runs in sync debug mode "error": a host sync inside
-        the tick raises."""
+    def _warm_up(self, kv: int, c: Optional[int] = None) -> None:
+        """The eager tick that precedes a capture (decode, or with ``c``
+        a chunk of c rows), with the state put back after it, so that its
+        advance is not engine progress.  On the card it runs in sync debug
+        mode "error": a host sync inside the tick raises."""
         with self._state_kept():
             if self.device.type != "cuda":
-                self._decode_step(kv)
+                self._step(kv, c)
                 return
             prev = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                self._decode_step(kv)
+                self._step(kv, c)
             finally:
                 torch.cuda.set_sync_debug_mode(prev)
 
-    def _capture(self, kv: int) -> torch.cuda.CUDAGraph:
-        """Capture one decode tick at kv bound ``kv`` into the shared
-        pool, after a warm-up tick on the capture's side stream.  Raises
-        if a hand-written kernel launched meanwhile: a replay makes no
-        Python call, so its launch counter would not move."""
-        from ..kernels import launch_counts
-
+    @contextmanager
+    def _side_stream(self):
+        """Run the block on the engine's capture stream, which waits for
+        the current one and which the current one waits for after it.
+        One stream serves every capture: PyTorch keeps a cuBLAS workspace
+        (32 MiB on Hopper) for each stream that runs a product, for the
+        life of the process."""
         dev = self.device
-        t0 = time.perf_counter()
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            yield
+        torch.cuda.current_stream(dev).wait_stream(stream)
+
+    def _record(self, kv: int, c: Optional[int]):
+        """Capture the tick body on the current stream into the shared
+        pool."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        before = launch_counts()
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(stream):
-            self._warm_up(kv)
-            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
-                self._decode_step(kv)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        after = launch_counts()
-        if after != before:
-            raise RuntimeError(f"a hand-written kernel launched while the decode tick at "
-                               f"kv {kv} was captured ({before} -> {after})")
-        self.capture_seconds += time.perf_counter() - t0
+        with torch.cuda.graph(graph, pool=self._pool,
+                              stream=torch.cuda.current_stream(self.device)):
+            self._step(kv, c)
         return graph
 
+    def _capture(self, kv: int, c: Optional[int] = None) -> CapturedTick:
+        """Capture one tick at kv bound ``kv`` (decode, or with ``c`` a
+        chunk of c rows) after a warm-up tick, both on a side stream.
+        Neither advances the wrappers' launch counts: the capture's
+        launches are recorded and added at every replay.  A decode capture
+        raises if a hand-written kernel launched: none runs in a decode
+        tick."""
+        from ..kernels import add_launches, launch_counts
+
+        t0 = time.perf_counter()
+        before = launch_counts()
+        with self._side_stream():
+            self._warm_up(kv, c)
+            warm = launch_counts()
+            graph = self._record(kv, c)
+        after = launch_counts()
+        add_launches({k: before[k] - n for k, n in after.items()})
+        if c is None and after != before:
+            raise RuntimeError(f"a hand-written kernel launched while the decode tick at "
+                               f"kv {kv} was captured ({before} -> {after})")
+        dt = time.perf_counter() - t0
+        self.capture_seconds += dt
+        if c is not None:
+            self.chunk_capture_seconds += dt
+        return CapturedTick(graph, {k: n - warm[k] for k, n in after.items()})
+
     def graph_pool_bytes(self) -> int:
-        """Device bytes held by the decode graphs' shared pool."""
+        """Device bytes held by the graphs' shared pool."""
         if self._pool is None:
             return 0
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg["segment_pool_id"]) == tuple(self._pool))
-
-    def _chunk_tick(self, toks: torch.Tensor, off: int, slot: int, last: bool,
-                    kv: int):
-        sub = T.cache_slot_view(self.cache, slot)
-        logits, sub = T.chunk_step(self.params, self.cfg, toks, sub, off, kv)
-        T.cache_slot_write(self.cache, sub, slot)
-        self.lens[slot] = off + toks.shape[1]
-        if last:
-            # final chunk: its last-position logits seed decoding
-            ctok = torch.argmax(logits[0, -1])
-            self.toks[slot, 0] = ctok
-            self.buf[slot, 0] = ctok
-            self.pos[slot] = 1
-
-    def _mixed_tick(self, toks, off, slot, last, kv_d, kv_p) -> torch.Tensor:
-        # overlap tick: decode every active slot AND land one prefill
-        # chunk.  Decode runs first: its garbage write into the
-        # prefilling slot (row = that slot's current length) is
-        # overwritten by the chunk that follows.
-        nxt = self._decode_tick(kv_d)
-        self._chunk_tick(toks, off, slot, last, kv_p)
-        return nxt
 
     # -- admission -------------------------------------------------------
     def submit(self, req: Request):
@@ -483,7 +590,8 @@ class ContinuousEngine:
             for t in lc.values():
                 t.zero_()
         for t in (self.toks, self.lens, self.buf, self.pos, self.nxt,
-                  self.logits, self._active):
+                  self.logits, self._active, self._ctoks, self._coff, self._cslot,
+                  self._clast, self.chunk_logits):
             t.zero_()
         b = self.batch
         self.lengths = [0] * b
@@ -574,8 +682,8 @@ def main(argv=None):
         ceng.run()
         print(f"overlap ratio: {ceng.overlap_ratio():.2f}, page={ceng.page}")
         if ceng.cuda_graphs:
-            print(f"decode graphs: {len(ceng.graphs)} captured in "
-                  f"{ceng.capture_seconds:.2f} s, pool "
+            print(f"graphs: {len(ceng.graphs)} decode, {len(ceng.chunk_graphs)} chunk, "
+                  f"captured in {ceng.capture_seconds:.2f} s, pool "
                   f"{ceng.graph_pool_bytes() / 2**20:.1f} MiB")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

@@ -16,7 +16,7 @@ one device and are dropped.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,9 +27,9 @@ from .layers import apply_rope, dense_init, rmsnorm, rmsnorm_init
 NEG_INF = -2.3819763e38
 
 
-def _flash(q, k, v, q_offset: int = 0):
+def _flash(q, k, v, q_offset=0, kv_row=0):
     from ..kernels import ops
-    return ops.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    return ops.flash_attention(q, k, v, causal=True, q_offset=q_offset, kv_row=kv_row)
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig,
@@ -136,32 +136,44 @@ def decode_attention(p, cfg: ArchConfig, x, k_cache, v_cache, cache_len: int,
 # serving fast path: chunked prefill + ragged paged decode
 # ---------------------------------------------------------------------------
 
-def chunk_attention(p, cfg: ArchConfig, x, k_cache, v_cache, offset: int,
-                    kv_len: int, *, window: int = 0
+def chunk_attention(p, cfg: ArchConfig, x, k_cache, v_cache, offset, kv_len: int,
+                    *, window: int = 0, slot: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Chunked-prefill self-attention: x (b, c, d) holds rows
-    ``[offset, offset+c)`` of the sequence; the chunk's k/v are written
-    into the cache at ``offset`` and attention runs causally over
-    ``cache[:, :kv_len]``, the page-aligned prefix covering
-    ``offset + c``.  The kernel route passes ``offset`` as the flash
-    kernel's runtime ``q_offset`` and reads the cache prefix in place.
+    ``[offset, offset+c)`` of the sequence (``offset`` an int or a 0-d
+    integer tensor on x's device); the chunk's k/v are written into the
+    cache at ``offset`` (``index_put_``, the reference's
+    ``dynamic_update_slice``; ``offset + c`` must fit the cache) and
+    attention runs causally over ``cache[:, :kv_len]``, the page-aligned
+    prefix covering ``offset + c``.  With ``slot`` (a 0-d integer tensor),
+    x is one sequence (b = 1) in batch row ``slot`` of the caches, which
+    are read and written there in place.  The kernel route hands
+    ``offset`` and ``slot`` to the flash kernel as device data and reads
+    the cache prefix in place; the plain route builds its causal and
+    window mask from the same device positions.  Neither reads a device
+    value on the host, so one CUDA graph serves every offset and slot.
     Returns (out, k_cache, v_cache)."""
     b, c, _ = x.shape
-    positions = (offset + torch.arange(c, device=x.device))[None, :].expand(b, c)
-    q, k_new, v_new = _qkv(p, cfg, x, positions)
-    k_cache[:, offset:offset + c] = k_new.to(k_cache.dtype)
-    v_cache[:, offset:offset + c] = v_new.to(v_cache.dtype)
+    pos = offset + torch.arange(c, device=x.device)                # (c,)
+    q, k_new, v_new = _qkv(p, cfg, x, pos[None, :].expand(b, c))
+    rows = torch.arange(b, device=x.device)
+    if slot is not None:
+        rows = rows + slot
+    at = (rows[:, None], pos[None, :])
+    k_cache.index_put_(at, k_new.to(k_cache.dtype))
+    v_cache.index_put_(at, v_new.to(v_cache.dtype))
     kp = k_cache[:, :kv_len]
     vp = v_cache[:, :kv_len]
     md = mode()
     if md.enabled and window == 0 and c >= md.min_attn_q:
-        out = _flash(q, kp, vp, q_offset=offset)
+        out = _flash(q, kp, vp, q_offset=offset, kv_row=0 if slot is None else slot)
     else:
-        rows = offset + torch.arange(c, device=x.device)[:, None]
+        if slot is not None:
+            kp, vp = kp.index_select(0, rows), vp.index_select(0, rows)
         cols = torch.arange(kv_len, device=x.device)[None, :]
-        m = rows >= cols
+        m = pos[:, None] >= cols
         if window:
-            m &= (rows - cols) < window
+            m &= (pos[:, None] - cols) < window
         out = _sdpa(q, kp, vp, m[None].expand(b, c, kv_len),
                     cfg.n_heads // cfg.n_kv_heads)
     out = out.reshape(b, c, -1) @ p["wo"]

@@ -34,7 +34,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from functools import partial
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -329,20 +329,36 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             for spec in specs]
 
 
-def cache_slot_view(cache: Cache, i: int) -> Cache:
+def cache_slot_view(cache: Cache, i: Union[int, torch.Tensor]) -> Cache:
     """Batch-size-1 view of batch slot ``i``: writes through the view
-    land in ``cache``."""
-    return [{name: t[i:i + 1] for name, t in lc.items()} for lc in cache]
+    land in ``cache``.  ``i`` may be a 0-d integer tensor on the cache's
+    device (the reference's traced index), never read on the host: then
+    an attention layer's view is its whole k/v with the slot beside them
+    (``{"k", "v", "slot"}``, which :func:`chunk_step` reads and writes in
+    place at that row), and a Mamba layer's small conv tail and SSM state
+    are gathered (``index_select``) for :func:`cache_slot_write` to put
+    back."""
+    if not isinstance(i, torch.Tensor):
+        return [{name: t[i:i + 1] for name, t in lc.items()} for lc in cache]
+    at = i.reshape(1)
+    return [dict(lc, slot=i) if "k" in lc else
+            {name: t.index_select(0, at) for name, t in lc.items()} for lc in cache]
 
 
-def cache_slot_write(cache: Cache, sub: Cache, i: int) -> Cache:
-    """Write a b=1 sub-cache back at slot ``i``.  A sub-cache that is
-    :func:`cache_slot_view` of ``cache`` already lives there and is not
-    copied."""
+def cache_slot_write(cache: Cache, sub: Cache, i: Union[int, torch.Tensor]) -> Cache:
+    """Write a b=1 sub-cache back at slot ``i`` (an int or a 0-d device
+    tensor, as in :func:`cache_slot_view`).  A sub-cache entry that
+    :func:`cache_slot_view` made as a view of ``cache`` already lives
+    there and is not copied."""
+    tensor_slot = isinstance(i, torch.Tensor)
     for lc, sc in zip(cache, sub):
         for name, t in lc.items():
-            dst = t[i:i + 1]
             src = sc[name]
+            if tensor_slot:
+                if src is not t:
+                    t.index_put_((i.reshape(1),), src.to(t.dtype))
+                continue
+            dst = t[i:i + 1]
             if src.data_ptr() != dst.data_ptr():
                 dst.copy_(src)
     return cache
@@ -373,13 +389,13 @@ def _stack_walk(params, cfg: ArchConfig, x, cache: Cache, layer_fn):
     return x, new_cache
 
 
-def _chunk_layer(p, spec: LayerSpec, cfg: ArchConfig, x, cache, offset: int,
+def _chunk_layer(p, spec: LayerSpec, cfg: ArchConfig, x, cache, offset,
                  kv_len: int):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == "attn":
         h, k, v = ATT.chunk_attention(p["mixer"], cfg, h, cache["k"],
                                       cache["v"], offset, kv_len,
-                                      window=spec.window)
+                                      window=spec.window, slot=cache.get("slot"))
         nc = {"k": k, "v": v}
     else:
         h, conv, ssm_st = SSM.mamba_chunk(p["mixer"], cfg, h, cache["conv"],
@@ -389,13 +405,15 @@ def _chunk_layer(p, spec: LayerSpec, cfg: ArchConfig, x, cache, offset: int,
 
 
 def chunk_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache: Cache,
-               offset: int, kv_len: int) -> Tuple[torch.Tensor, Cache]:
+               offset, kv_len: int) -> Tuple[torch.Tensor, Cache]:
     """Prefill one chunk of a sequence into an existing cache.
 
-    tokens: (b, c) — rows ``[offset, offset+c)`` of the prompt; cache
-    (typically a b=1 :func:`cache_slot_view`) with all rows < offset
-    already prefilled.  Returns (logits (b, c, vocab) for every chunk
-    position, cache)."""
+    tokens: (b, c) — rows ``[offset, offset+c)`` of the prompt, ``offset``
+    an int or a 0-d integer tensor on the device (the reference's traced
+    offset, never read on the host); cache (typically a b=1
+    :func:`cache_slot_view`, by an int or a device slot) with all rows
+    < offset already prefilled.  Returns (logits (b, c, vocab) for every
+    chunk position, cache)."""
     x = embed(tokens, params["embed"])
     x, cache = _stack_walk(
         params, cfg, x, cache,
