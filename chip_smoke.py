@@ -23,9 +23,11 @@ Phases, each of which exits nonzero on failure:
    with its offset from a device scalar, and as one slot (batch row 1) of
    a larger cache with offset and row from device scalars, the serving
    chunk's launch.  The matmul cases include
-   gemma3's MLP shapes; the flash cases the ragged chunks granite's,
-   qwen3-moe's and gemma3's traffic send (head dims 64, 128 and 256) and
-   a gemma3 chunk over a 1536-row prefix; beside them
+   gemma3's MLP shapes and seamless's (its encoder's over 4096 stub
+   frames); the flash cases the ragged chunks granite's, qwen3-moe's,
+   gemma3's and seamless's traffic send (head dims 64, 128 and 256; 16
+   heads over 16 KV heads for seamless), a gemma3 chunk over a 1536-row
+   prefix and seamless's 512-row prefill; beside them
    stand which backend ``scaled_dot_product_attention`` takes for the
    library call and each backend's time, and, for both kernels, a sweep
    of the launch geometry at the serving shapes (for flash the ring
@@ -78,9 +80,27 @@ Phases, each of which exits nonzero on failure:
    matmul kernel.  The chunk-step check prints how many (token, k)
    expert picks differ between its runs, and the kernels' distance from
    the plain run when they take the plain run's picks;
-7. train — the training path (``transformer.lm_loss``, ``train.steps``,
+7. encoder-decoder — ``seamless_m4t_large_v2`` at full width and depth
+   (24 encoder and 24 decoder layers, d_model 1024, 16 heads over 16 KV
+   heads of head dim 64, d_ff 8192; 2.036 B parameters), after
+   qwen3-moe's engine and weights are freed.  (a) Its own path through
+   ``make_prefill_step`` and ``make_serve_step``: a 4096-frame bf16 stub
+   and a 512-token prompt prefilled with the kernels on (the MLP's three
+   products through the matmul kernel in all 48 layers, the decoder's
+   causal attention through flash in its 24; the encoder's and the cross
+   attention are plain, as in the reference), memory computed as the
+   prefill computes it, and 16 greedy decode steps with memory from the
+   merged prefill cache, which launch no kernel.  The prefill's logits are
+   held against the same prefill with the kernels off and against an f32
+   run, and a teacher-forced ``forward`` over the prompt and the fed
+   tokens against the prefill's and every decode step's logits; the
+   encoder, the whole prefill and one decode step are profiled beside
+   their bounds (``encdec_work``).  (b) ``phase_serve``: the engine serves
+   its decoder alone, as the reference's does (its steps have no cross
+   attention), with the same traffic and checks as phases 3-6;
+8. train — the training path (``transformer.lm_loss``, ``train.steps``,
    ``optim.adamw``, ``train.checkpoint``, ``Trainer``) on
-   ``granite_3_2b``, after qwen3-moe's engine and weights are freed, with
+   ``granite_3_2b``, after seamless's engine and weights are freed, with
    the kernel mode off, as the reference trains: (a) two train steps in
    f32 at full width and 2 layers (batch 2, seq 128) on the card and on
    the CPU from the same weights and batches, the losses and gradient
@@ -348,7 +368,13 @@ MM_CASES = [(256, 2048, 8192), (256, 8192, 2048), (200, 2048, 8192),
             # split's last k tile is ragged
             (256, 8160, 2048),
             # gemma3's MLP: gate/up and down of a full chunk
-            (256, 2560, 10240), (256, 10240, 2560)]
+            (256, 2560, 10240), (256, 10240, 2560),
+            # seamless-m4t's MLP: the encoder's over 4096 stub frames, then
+            # the decoder's over a full chunk
+            (4096, 1024, 8192), (4096, 8192, 1024), (256, 1024, 8192),
+            (256, 8192, 1024),
+            # ... and the decoder's over the 512-token prefill prompt
+            (512, 1024, 8192), (512, 8192, 1024)]
 
 
 def phase_matmul(gen: torch.Generator) -> dict:
@@ -402,12 +428,16 @@ def phase_matmul(gen: torch.Generator) -> dict:
 # heads, head dim 128), and the b = 4 cases of earlier runs; then
 # qwen3-moe's ragged chunks and b = 4; then the same chunks at gemma3's
 # global-layer heads (8 over 4 kv heads, head dim 256), and its chunk at
-# offset 1280 over a 1536-row prefix (past the local window)
+# offset 1280 over a 1536-row prefix (past the local window); then
+# seamless-m4t's decoder (16 heads over 16 kv heads, head dim 64: no
+# grouping), its full and ragged serving chunks and its 512-row prefill
 GRANITE_HEADS = (32, 8, 64)
 QWEN3_HEADS = (32, 4, 128)
 GEMMA3_HEADS = (8, 4, 256)
+SEAMLESS_HEADS = (16, 16, 64)
 FLASH_QWEN3_CASE = (1, 256, 1024, 768, *QWEN3_HEADS)
 FLASH_GEMMA3_CASE = (1, 256, 1024, 768, *GEMMA3_HEADS)
+FLASH_SEAMLESS_CASE = (1, 256, 1024, 768, *SEAMLESS_HEADS)
 FLASH_CASES = [(1, 256, 1024, 768, *GRANITE_HEADS), (1, 256, 768, 512, *GRANITE_HEADS),
                (1, 44, 384, 256, *GRANITE_HEADS), (1, 128, 640, 512, *GRANITE_HEADS),
                (1, 132, 1024, 768, *GRANITE_HEADS), (1, 232, 1024, 768, *GRANITE_HEADS),
@@ -419,7 +449,10 @@ FLASH_CASES = [(1, 256, 1024, 768, *GRANITE_HEADS), (1, 256, 768, 512, *GRANITE_
                FLASH_GEMMA3_CASE, (1, 256, 768, 512, *GEMMA3_HEADS),
                (1, 44, 384, 256, *GEMMA3_HEADS), (1, 128, 640, 512, *GEMMA3_HEADS),
                (1, 132, 1024, 768, *GEMMA3_HEADS), (1, 232, 1024, 768, *GEMMA3_HEADS),
-               (4, 256, 1024, 768, *GEMMA3_HEADS), (1, 256, 1536, 1280, *GEMMA3_HEADS)]
+               (4, 256, 1024, 768, *GEMMA3_HEADS), (1, 256, 1536, 1280, *GEMMA3_HEADS),
+               FLASH_SEAMLESS_CASE, (1, 44, 384, 256, *SEAMLESS_HEADS),
+               (1, 128, 640, 512, *SEAMLESS_HEADS), (1, 132, 1024, 768, *SEAMLESS_HEADS),
+               (1, 232, 1024, 768, *SEAMLESS_HEADS), (1, 512, 512, 0, *SEAMLESS_HEADS)]
 FLASH_CACHE_LEN = 1600
 
 
@@ -524,7 +557,7 @@ def phase_flash(gen: torch.Generator) -> dict:
               f"kernel {ms:.4f} ms (host {hus:.1f} us/call), plain {plain:.4f} ms, "
               f"scaled_dot_product_attention {lib:.4f} ms (host {lib_hus:.1f} "
               f"us/call), bound {bms:.4f} ms ({by})")
-        if i == 0 or FLASH_CASES[i] == FLASH_GEMMA3_CASE:
+        if i == 0 or FLASH_CASES[i] in (FLASH_GEMMA3_CASE, FLASH_SEAMLESS_CASE):
             sdpa_backends(qt, kt, vt, mask)
         cases.append(dict(shape=[b, h, hkv, d, c, kv_len, off], ms=ms, plain_ms=plain,
                           library_ms=lib, bound_ms=bms, bound_by=by, host_us=hus,
@@ -791,6 +824,9 @@ def describe(cfg) -> str:
         n_global = sum(cfg.is_global_attn_layer(i) for i in range(cfg.n_layers))
         text += (f", window {cfg.sliding_window} on {cfg.n_layers - n_global} local "
                  f"layers, {n_global} global")
+    if cfg.enc_layers:
+        text += (f", an encoder of {cfg.enc_layers} layers over {cfg.frontend_len} stub "
+                 f"frames read by every decoder layer's cross attention")
     return text
 
 
@@ -923,8 +959,10 @@ def serve_traffic(eng, cfg, prompts, path_kernels, label: str) -> dict:
     if "matmul" in path_kernels:
         # full chunks clear min_matmul_rows; ragged ones take plain matmuls
         full_chunks = sum(n // SERVE_CHUNK for n in SERVE_PLENS)
-        print(f"  matmul launches {launches['matmul']} (expected {full_chunks} full chunks "
-              f"x {cfg.n_layers} layers x 3 = {full_chunks * cfg.n_layers * 3})")
+        want = full_chunks * cfg.n_layers * 3
+        require(launches["matmul"] == want,
+                f"matmul launches {launches['matmul']}, expected {want} ({full_chunks} full "
+                f"chunks x {cfg.n_layers} layers x 3)")
     ntok = SERVE_GEN * len(reqs)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  {label}: {len(reqs)} requests, prompts {list(SERVE_PLENS)}, {ntok} new "
@@ -1052,7 +1090,10 @@ def check_chunk_replay(cfg, eng, gen) -> None:
                                   f"bit-identical to eager {same}")
 
 
-def profile_step(name: str, fn, reps: int, graph: bool) -> None:
+def profile_step(name: str, fn, reps: int, graph: bool):
+    """Print ``fn``'s host wall and device busy per call, with its largest
+    device items; returns (wall, busy) in ms (busy 0 where the profiler
+    saw none)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1092,6 +1133,7 @@ def profile_step(name: str, fn, reps: int, graph: bool) -> None:
             if busy > 0 else "device busy not seen by the profiler")
     print(f"  {name}: wall {wall:.2f} ms, {seen}{span}; top: {tops}; "
           f"csrc kernels: {ours or 'none'}")
+    return wall, busy
 
 
 def _kernel_name(key: str) -> str:
@@ -1132,7 +1174,8 @@ def check_chunk_step(cfg, params, toks, max_len, relative: bool,
         return logits, picks
 
     (kerns, kpicks), (plains, ppicks) = run(cfg, params, True), run(cfg, params, False)
-    f32_params = {k: F32Layers(v) if k == "layers" else v.float() for k, v in params.items()}
+    f32_params = {k: F32Layers(v) if isinstance(v, list) else v.float()
+                  for k, v in params.items()}
     f32s, fpicks = run(cfg.scaled(dtype="float32"), f32_params, False)
     held = run(cfg, params, True, replay=ppicks)[0] if cfg.n_experts else None
     torch.cuda.synchronize()
@@ -1147,7 +1190,8 @@ def check_chunk_step(cfg, params, toks, max_len, relative: bool,
                   f"kernels and f32; with the plain run's picks, kernels vs plain "
                   f"rms_rel={rms(held[off] - plains[off]) / rms(plains[off]):.3e} "
                   f"max_abs_err={float((held[off] - plains[off]).abs().max()):.3e}")
-        compare_logits(off, kerns[off], plains[off], f32s[off], relative)
+        compare_logits(f"chunk_step logits {tuple(kerns[off].shape)} at offset {off}",
+                       kerns[off], plains[off], f32s[off], relative)
 
 
 class F32Layers:
@@ -1193,10 +1237,10 @@ def pick_flips(a, b, e: int) -> int:
                for x, y in zip(a, b))
 
 
-def compare_logits(off: int, kern, plain, f32, relative: bool) -> None:
-    """One chunk's logits with the kernels against the plain bf16 path and
-    against the f32 run (see LOGIT_RMS_TOL and LOGIT_VS_F32)."""
-    require(bool(torch.isfinite(kern).all()), "chunk_step: non-finite logits")
+def compare_logits(what: str, kern, plain, f32, relative: bool) -> None:
+    """Logits with the kernels against the plain bf16 path and against the
+    f32 run (see LOGIT_RMS_TOL and LOGIT_VS_F32)."""
+    require(bool(torch.isfinite(kern).all()), f"{what}: non-finite logits")
 
     rel = rms(kern - plain) / rms(plain)
     worst = float((kern - plain).abs().max())
@@ -1208,17 +1252,196 @@ def compare_logits(off: int, kern, plain, f32, relative: bool) -> None:
     else:
         rms_tol, max_tol = LOGIT_RMS_TOL, LOGIT_MAX_TOL
     ok = rel <= rms_tol and worst <= max_tol and e_kern <= LOGIT_VS_F32 * e_plain
-    print(f"  chunk_step logits {tuple(kern.shape)} at offset {off}, kernels vs "
-          f"plain bf16: rms_rel={rel:.3e} (tol {rms_tol:.3e}) max_abs_err="
+    print(f"  {what}, kernels vs plain bf16: rms_rel={rel:.3e} (tol {rms_tol:.3e}) max_abs_err="
           f"{worst:.3e} (tol {max_tol:.3e}); vs f32: kernels rms_rel="
           f"{e_kern:.3e}, plain rms_rel={e_plain:.3e} (tol {LOGIT_VS_F32}x), "
           f"plain max_abs_err={worst_plain:.3e}; argmax agreement {agree:.4f} "
           f"{'PASS' if ok else 'FAIL'}")
-    require(ok, "chunk_step with the kernels disagrees with the plain path")
+    require(ok, f"{what}: the kernels disagree with the plain path")
 
 
 def rms(x) -> float:
     return float(x.pow(2).mean().sqrt())
+
+
+ENCDEC_ARCH = "seamless_m4t_large_v2"
+ENCDEC_PARAMS_B = 2.036          # jax.eval_shape of the reference's init_params
+ENCDEC_PROMPT = 512
+ENCDEC_STEPS = 16
+
+
+def encdec_work(cfg, frames: int, seq: int, kv: int):
+    """Operations and bytes of the encoder-decoder's path, as the port
+    runs it: (bf16 FLOPs, f32 FLOPs, bytes) of the encoder over
+    ``frames`` stub frames, and of the decoder over ``seq`` new tokens
+    that attend causally to ``kv`` rows in all (``seq == kv`` for the
+    prefill; one token over the whole cache for a decode step, whose
+    plain attention reads every row) and across to memory.  The weight
+    products run on the tensor cores in bf16; the plain attention
+    (``_sdpa``: the encoder's, the cross attention, the decode step's)
+    runs its two einsums in f32, kernel B its causal pairs in bf16.  Bytes:
+    each weight read once, the stub, memory and the logits' rows once."""
+    d, f, hq, hkv = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    layer_w = d * (2 * hq + 2 * hkv) + 3 * d * f                 # attention + MLP
+    proj = lambda rows: 2 * rows * d * (2 * hq + 2 * hkv)        # noqa: E731
+    enc = (cfg.enc_layers * (proj(frames) + 6 * frames * d * f) + 2 * frames * d * d,
+           cfg.enc_layers * 4 * frames * frames * hq,
+           2 * (cfg.enc_layers * layer_w + d * d + 2 * frames * d))
+    cross = 2 * seq * d * 2 * hq + 2 * frames * d * 2 * hkv      # q, o; memory's k, v
+    if seq == kv:                  # prefill: kernel B's causal pairs
+        attn_bf16, attn_f32 = 4 * cfg.hd * cfg.n_heads * seq * (seq + 1) // 2, 0
+    else:                          # decode: plain attention over the cache
+        attn_bf16, attn_f32 = 0, 4 * seq * kv * hq
+    dec_bf16 = (cfg.n_layers * (proj(seq) + cross + 6 * seq * d * f + attn_bf16)
+                + 2 * d * cfg.vocab)
+    dec_f32 = cfg.n_layers * (attn_f32 + 4 * seq * frames * hq)
+    dec_layer_w = layer_w + d * (2 * hq + 2 * hkv)                # and cross attention
+    dec_bytes = 2 * (cfg.n_layers * (dec_layer_w + frames * d + 2 * kv * hkv)
+                     + d * cfg.vocab + cfg.vocab)
+    return enc, (dec_bf16, dec_f32, dec_bytes)
+
+
+def work_bound(work) -> float:
+    """The least time in ms for (bf16 FLOPs, f32 FLOPs, bytes): the
+    larger of the bytes over the memory rate and the operations, each
+    type over its own peak (the two types run one after the other)."""
+    bf16, f32, nbytes = work
+    return max(nbytes / PEAK_BYTES, bf16 / PEAK_BF16 + f32 / PEAK_F32) * 1e3
+
+
+def phase_encdec(gpu: str) -> dict:
+    """Phase 7 (a) (see the module docstring): the encoder-decoder's own
+    path at full width.  Returns the kernel launches of its prefill and
+    decode run."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.model import transformer as T
+    from repro_torch.model.kernel_mode import kernel_mode
+    from repro_torch.model.layers import make_generator
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+    from repro_torch.tree import leaves, map_tree
+
+    cfg = get_arch(ENCDEC_ARCH)
+    carried = collect_previous_phase()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params)) / 1e9
+    print(f"[encdec] {cfg.name}: {describe(cfg)}, vocab {cfg.vocab}, {cfg.dtype}: "
+          f"{n_params:.3f} B parameters, init {time.perf_counter() - t0:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {carried}")
+    require(abs(n_params - ENCDEC_PARAMS_B) <= 0.001,
+            f"{n_params:.4f} B parameters, expected {ENCDEC_PARAMS_B}")
+
+    gen = make_generator(1, dev)
+    frames, plen = cfg.frontend_len, ENCDEC_PROMPT
+    enc = torch.randn((1, frames, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    prompt = torch.randint(2, cfg.vocab, (1, plen), generator=gen, device=dev)
+    batch = {"tokens": prompt, "enc_frontend": enc}
+    prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+    prefill_f32 = make_prefill_step(cfg.scaled(dtype="float32"))
+    mods = kernel_modules()
+
+    def counted(fn):
+        for mod in mods.values():
+            mod.LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {name: mod.LAUNCHES for name, mod in mods.items()}
+
+    with kernel_mode(enabled=True):
+        prefill_step(params, batch)                       # warm-up
+        (logits, pre), launches = counted(lambda: prefill_step(params, batch))
+        # memory as prefill computes it, for the decode steps
+        with torch.no_grad():
+            memory, mem_launches = counted(lambda: T.encode(params, cfg, enc))
+    n_enc, n_dec = cfg.enc_layers, cfg.n_layers
+    want = {"matmul": 3 * (n_enc + n_dec), "flash_attention": n_dec, "scan_gate": 0,
+            "selective_scan": 0}
+    print(f"  prefill, {frames} stub frames and a {plen}-token prompt, kernels on: "
+          f"launches {launches} (expected {want}: the SwiGLU MLP's three products in "
+          f"every layer, {frames} and {plen} rows; kernel B in every decoder layer; the "
+          f"encoder's and the cross attention are plain, as in the reference)")
+    require(launches == want, f"prefill launches {launches}, expected {want}")
+    require(mem_launches["matmul"] == 3 * n_enc, f"encoder launches {mem_launches}")
+    print(f"  memory for the decode steps (transformer.encode, a second encoder pass "
+          f"beside the prefill's): launches {mem_launches}, added to the kernels line")
+
+    # 16 greedy decode steps with memory from the merged prefill cache
+    max_len = plen + ENCDEC_STEPS
+    cache = T.merge_cache_slot(T.init_cache(cfg, 1, max_len, dev), pre, 0)
+    tok = logits.argmax(-1)[:, None]
+    toks, step_logits = [tok], []
+
+    def decode():
+        nonlocal cache, tok
+        for i in range(ENCDEC_STEPS):
+            lg, cache = serve_step(params, {"token": tok, "cache": cache,
+                                            "cache_len": plen + i, "memory": memory})
+            step_logits.append(lg.float())
+            tok = lg.argmax(-1)[:, None]
+            toks.append(tok)
+    with kernel_mode(enabled=True):
+        _, dec_launches = counted(decode)
+    require(all(n == 0 for n in dec_launches.values()),
+            f"a kernel launched in a decode step: {dec_launches}")
+    generated = torch.cat(toks, 1)
+    require(bool(((generated >= 0) & (generated < cfg.vocab)).all()), "token id out of range")
+    print(f"  {ENCDEC_STEPS} greedy decode steps with memory (make_serve_step): no kernel "
+          f"launch (one row: below min_matmul_rows; decode attention is plain); tokens "
+          f"{generated[0, :8].tolist()}...")
+
+    # prefill logits: kernels against the plain bf16 path and an f32 run
+    with torch.no_grad(), kernel_mode(enabled=False):
+        plain, _ = prefill_step(params, batch)
+        f32 = map_tree(torch.Tensor.float, params)
+        ref32, _ = prefill_f32(f32, {"tokens": prompt, "enc_frontend": enc.float()})
+        del f32
+    compare_logits(f"prefill logits {tuple(logits.shape)}", logits.float(), plain.float(),
+                   ref32.float(), relative=False)
+    # teacher forcing: one forward over the prompt and the fed tokens,
+    # plain, against the prefill's and each decode step's logits
+    with torch.no_grad(), kernel_mode(enabled=False):
+        full, _ = T.forward(params, cfg, torch.cat([prompt, generated[:, :-1]], 1),
+                            enc_frontend=enc)
+    full = full[0, plen - 1:].float()
+    stepped = torch.cat([logits.float()] + step_logits, 0)
+    rel = rms(stepped - full) / rms(full)
+    worst = float((stepped - full).abs().max())
+    agree = float((stepped.argmax(-1) == full.argmax(-1)).float().mean())
+    ok = rel <= LOGIT_RMS_TOL and worst <= LOGIT_MAX_TOL
+    print(f"  teacher-forced forward over {plen + ENCDEC_STEPS} tokens against the prefill "
+          f"and {ENCDEC_STEPS} decode steps' logits {tuple(stepped.shape)}: rms_rel={rel:.3e} "
+          f"(tol {LOGIT_RMS_TOL}) max_abs_err={worst:.3e} (tol {LOGIT_MAX_TOL}); argmax "
+          f"agreement {agree:.4f} {'PASS' if ok else 'FAIL'}")
+    require(ok, "decode steps with memory disagree with the teacher-forced forward")
+
+    # where the time goes: the encoder alone, the whole prefill, a decode step
+    enc_w, dec_w = encdec_work(cfg, frames, plen, plen)
+    _, step_w = encdec_work(cfg, frames, 1, max_len)
+    with torch.no_grad(), kernel_mode(enabled=True):
+        e_wall, e_busy = profile_step(f"encoder ({frames} frames: frontend_proj, "
+                                      f"{n_enc} layers, enc_final_ln)",
+                                      lambda: T.encode(params, cfg, enc), 3, False)
+        p_wall, p_busy = profile_step(f"prefill (encoder and {plen}-token decoder)",
+                                      lambda: prefill_step(params, batch), 3, False)
+        step_cache = T.init_cache(cfg, 1, max_len, dev)
+        s_wall, s_busy = profile_step(
+            f"decode step with memory (cache_len {plen}, kv {max_len})",
+            lambda: serve_step(params, {"token": tok, "cache": step_cache,
+                                        "cache_len": plen, "memory": memory}), 5, False)
+    e_bound, d_bound, s_bound = (work_bound(w) for w in (enc_w, dec_w, step_w))
+    print(f"  prefill wall {p_wall:.2f} ms, busy {p_busy:.2f} ms: encoder wall {e_wall:.2f} "
+          f"/ busy {e_busy:.2f} ms against a bound of {e_bound:.2f} ms "
+          f"({enc_w[0] / 1e12:.2f} TFLOP bf16, {enc_w[1] / 1e12:.2f} TFLOP f32); decoder "
+          f"(prefill less encoder) wall {p_wall - e_wall:.2f} / busy {p_busy - e_busy:.2f} "
+          f"ms against {d_bound:.2f} ms ({dec_w[0] / 1e12:.2f} TFLOP bf16, "
+          f"{dec_w[1] / 1e12:.2f} TFLOP f32); decode step wall {s_wall:.2f} / busy "
+          f"{s_busy:.2f} ms against {s_bound:.2f} ms ({step_w[2] / 1e9:.2f} GB, "
+          f"{step_w[0] / 1e12:.2f} TFLOP bf16 recomputing memory's k/v); phase peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: {gpu}")
+    return {k: launches[k] + mem_launches[k] + dec_launches[k] for k in launches}
 
 
 TRAIN_STEPS = 8
@@ -1226,7 +1449,7 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 256
 
 
 def phase_train(gpu: str) -> None:
-    """Phase 7 (see the module docstring)."""
+    """Phase 8 (see the module docstring)."""
     print(f"[train] {collect_previous_phase()}")
     mods = kernel_modules()
     for mod in mods.values():
@@ -1482,13 +1705,15 @@ def main() -> int:
         gemma3 = phase_serve(gpu, "gemma3_4b", ("matmul", "flash_attention"),
                              check_offsets=(SERVE_CHUNK, 1280))
         qwen3_moe = phase_serve(gpu, "qwen3_moe_30b_a3b", ("flash_attention",))
+        encdec = phase_encdec(gpu)
+        seamless = phase_serve(gpu, ENCDEC_ARCH, ("matmul", "flash_attention"))
         phase_train(gpu)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     for rec in records:
-        rec["launches"] = sum(run[rec["name"]]
-                              for run in (granite, falcon, gemma3, qwen3_moe))
+        rec["launches"] = sum(run[rec["name"]] for run in (granite, falcon, gemma3,
+                                                           qwen3_moe, encdec, seamless))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cases")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

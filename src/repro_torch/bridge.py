@@ -5,9 +5,12 @@ The reference (``src/repro/model/transformer.py``) stacks the layers of
 each pattern slot for ``lax.scan``: ``decoder.slots[s]`` leaves carry a
 leading repeat axis, and layers past the last full period sit in
 ``decoder.tail``.  Stacked slot ``s``, repeat ``r`` is the port's layer
-``r·period + s``; tail entry ``i`` is layer ``repeats·period + i``.
-Caches follow ``transformer.py:363-367``: ``slots`` entries carry batch
-on axis 1 (after the repeat axis), ``tail`` entries on axis 0.
+``r·period + s``; tail entry ``i`` is layer ``repeats·period + i``.  An
+encoder-decoder's ``encoder`` stack (period 1) becomes the port's
+``enc_layers`` the same way, and ``enc_final_ln`` and ``frontend_proj``
+cross as they are.  Caches (decoder only) follow
+``transformer.py:363-367``: ``slots`` entries carry batch on axis 1
+(after the repeat axis), ``tail`` entries on axis 0.
 
 Matmul weights keep the reference's ``(in, out)`` orientation.  A JAX
 bf16 array arrives in numpy as the ``bfloat16`` extension dtype; it is
@@ -53,10 +56,11 @@ def _stack(trees: List[Any]):
     return np.stack(trees)
 
 
-def _unstack(stack: Dict, cfg: ArchConfig, pick: Callable) -> List[Any]:
-    """Per-layer list from a ``{"slots", "tail"}`` stack."""
-    period = pattern_period(cfg)
-    n = len(check_supported(cfg))
+def _unstack(stack: Dict, cfg: ArchConfig, pick: Callable,
+             role: str = "decoder") -> List[Any]:
+    """Per-layer list from ``role``'s ``{"slots", "tail"}`` stack."""
+    period = pattern_period(cfg, role)
+    n = len(check_supported(cfg, role))
     repeats = n // period
     layers: List[Any] = [None] * n
     for s, slot in enumerate(stack["slots"]):
@@ -67,39 +71,55 @@ def _unstack(stack: Dict, cfg: ArchConfig, pick: Callable) -> List[Any]:
     return layers
 
 
-def _restack(layers: List[Any], cfg: ArchConfig, empty: List[Any]) -> Dict:
+def _restack(layers: List[Any], cfg: ArchConfig, empty: List[Any],
+             role: str = "decoder") -> Dict:
     """Inverse of :func:`_unstack`.  With fewer layers than one period
     the reference leaves ``empty`` as the slots: ``[None] * period`` in
     parameters (``transformer.py:124-128``), ``[]`` in caches (``:356``)."""
-    period = pattern_period(cfg)
+    period = pattern_period(cfg, role)
     repeats = len(layers) // period
     slots = [_stack([layers[r * period + s] for r in range(repeats)])
              for s in range(period)] if repeats else empty
     return {"slots": slots, "tail": list(layers[repeats * period:])}
 
 
+def _pick(slot, r):
+    return map_tree(lambda a: np.asarray(a)[r], slot)
+
+
 def params_from_numpy(tree: Dict, cfg: ArchConfig, device="cuda") -> Dict:
     """The reference's ``init_params`` pytree (numpy leaves) → the port's
     parameters on ``device``."""
-    layers = _unstack(tree["decoder"], cfg,
-                      lambda slot, r: map_tree(lambda a: np.asarray(a)[r], slot))
     conv = lambda a: to_torch(a, device)  # noqa: E731
     p = {"embed": conv(tree["embed"]), "final_ln": conv(tree["final_ln"]),
-         "layers": [map_tree(conv, lt) for lt in layers]}
+         "layers": [map_tree(conv, lt) for lt in _unstack(tree["decoder"], cfg, _pick)]}
     if "lm_head" in tree:
         p["lm_head"] = conv(tree["lm_head"])
+    if "encoder" in tree:
+        p["enc_layers"] = [map_tree(conv, lt)
+                           for lt in _unstack(tree["encoder"], cfg, _pick, "encoder")]
+        p["enc_final_ln"] = conv(tree["enc_final_ln"])
+    if "frontend_proj" in tree:
+        p["frontend_proj"] = conv(tree["frontend_proj"])
     return p
 
 
 def params_to_numpy(params: Dict, cfg: ArchConfig) -> Dict:
     """Inverse of :func:`params_from_numpy` (bf16 leaves as ``uint16``
     bits)."""
-    layers = [map_tree(to_numpy, lt) for lt in params["layers"]]
+    def stack(layers, role):
+        return _restack([map_tree(to_numpy, lt) for lt in layers], cfg,
+                        [None] * pattern_period(cfg, role), role)
     tree = {"embed": to_numpy(params["embed"]),
             "final_ln": to_numpy(params["final_ln"]),
-            "decoder": _restack(layers, cfg, [None] * pattern_period(cfg))}
+            "decoder": stack(params["layers"], "decoder")}
     if "lm_head" in params:
         tree["lm_head"] = to_numpy(params["lm_head"])
+    if "enc_layers" in params:
+        tree["encoder"] = stack(params["enc_layers"], "encoder")
+        tree["enc_final_ln"] = to_numpy(params["enc_final_ln"])
+    if "frontend_proj" in params:
+        tree["frontend_proj"] = to_numpy(params["frontend_proj"])
     return tree
 
 
@@ -125,9 +145,7 @@ def opt_state_to_numpy(state: AdamWState, cfg: ArchConfig) -> AdamWState:
 def cache_from_numpy(tree: Dict, cfg: ArchConfig, device="cuda") -> List[Dict]:
     """The reference's ``init_cache`` pytree → the port's per-layer
     cache; both have batch first within a layer."""
-    layers = _unstack(tree, cfg,
-                      lambda slot, r: map_tree(lambda a: np.asarray(a)[r], slot))
-    return [map_tree(lambda a: to_torch(a, device), lc) for lc in layers]
+    return [map_tree(lambda a: to_torch(a, device), lc) for lc in _unstack(tree, cfg, _pick)]
 
 
 def cache_to_numpy(cache: List[Dict], cfg: ArchConfig) -> Dict:

@@ -12,6 +12,7 @@ to the CPU, where the kernels' plain versions run.
 * :class:`ServeEngine` — the alternating baseline: whole-prompt prefill
   into a slot, then lock-step decode of every slot at a shared
   ``max(lengths)`` cache length.
+  It refuses an encoder-decoder, whose prefill needs encoder input.
 * :class:`ContinuousEngine` — per-request FIFO admission into free
   slots (each zeroed first), prompt prefill in fixed-size chunks
   interleaved with decode ticks, ragged per-slot cache lengths and paged
@@ -21,7 +22,9 @@ to the CPU, where the kernels' plain versions run.
   keeps exact mirrors of lengths and counters, so admission and
   retirement never read the device, and a request's tokens are read once,
   when it retires.  With ``use_kernels=True`` the layers route through
-  the Hopper kernels (see :mod:`repro_torch.model.kernel_mode`).
+  the Hopper kernels (see :mod:`repro_torch.model.kernel_mode`).  As in
+  the reference, its steps have no cross attention: an encoder-decoder
+  (seamless-m4t) is served as its decoder alone.
 
 The reference jit-compiles each decode tick and each prefill-chunk tick
 into one dispatch, with the cache and state donated, and fuses up to 16
@@ -85,22 +88,19 @@ def _tokens(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.long, device=device)
 
 
-def _merge_slot(cache: T.Cache, pre: T.Cache, slot: int) -> T.Cache:
-    """Write a b=1 prefill cache into batch slot ``slot`` of ``cache``:
-    an attention layer's ``plen`` KV rows, a Mamba layer's conv tail and
-    SSM state."""
-    for lc, pc in zip(cache, pre):
-        for name, t in lc.items():
-            src = pc[name]
-            t[slot:slot + 1, :src.shape[1]] = src.to(t.dtype)
-    return cache
-
-
 class ServeEngine:
     """Fixed-batch decode engine with greedy sampling (alternating
-    prefill/decode baseline)."""
+    prefill/decode baseline).
+
+    Its prefill passes no ``enc_frontend``, so the reference's fails on an
+    encoder-decoder (``None @ frontend_proj``); this one refuses such an
+    arch when it is made.  :class:`ContinuousEngine` serves its decoder."""
 
     def __init__(self, cfg, params, batch: int, max_len: int):
+        if cfg.enc_layers:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: the alternating engine's "
+                             "prefill has no encoder input; serve it with ContinuousEngine, "
+                             "which runs the decoder alone")
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
         self.batch, self.max_len = batch, max_len
@@ -116,7 +116,7 @@ class ServeEngine:
         # zero the slot's rows first (reused-slot hygiene: a shorter new
         # prompt must not expose the previous occupant's KV rows through
         # the shared max(lengths) decode mask), then merge
-        _merge_slot(T.zero_cache_slot(self.cache, slot), pre, slot)
+        T.merge_cache_slot(T.zero_cache_slot(self.cache, slot), pre, slot)
         self.slots[slot] = req
         self.lengths[slot] = req.prompt.shape[1]
         nxt = int(torch.argmax(logits[0]))

@@ -1,12 +1,13 @@
 """GQA attention with KV-cache decode, chunked prefill and paged decode.
 
-Ports the main-path functions of ``src/repro/model/attention.py``:
-``_qkv``, ``_sdpa``, ``causal_mask``, ``attention``,
+Ports ``src/repro/model/attention.py``: ``_qkv``, ``_sdpa``,
+``causal_mask``, ``attention``, ``attention_noncausal`` (the encoder's),
+``cross_attention`` (the decoder's over encoder memory),
 ``decode_attention``, ``chunk_attention`` and ``paged_decode_attention``.
-Sliding-window layers keep their mask.  ``_sdpa_chunked`` (the
-reference's ``ATTN_CHUNK``, which only its dry run sets) waits for a
-caller; cross and non-causal attention and M-RoPE come with the families
-that need them.
+Sliding-window layers keep their mask.  The encoder and cross attention
+are plain ``_sdpa`` with no mask, as in the reference: no kernel runs
+them.  ``_sdpa_chunked`` (the reference's ``ATTN_CHUNK``, which only its
+dry run sets) waits for a caller, and M-RoPE for qwen2-vl.
 
 The reference's functions are pure; here the cache updates are made in
 place (the returned cache tensors are the ones passed in), which saves a
@@ -103,6 +104,26 @@ def attention(p, cfg: ArchConfig, x, positions, *, window: int = 0,
     if return_kv:
         return out, (k, v)
     return out
+
+
+def attention_noncausal(p, cfg: ArchConfig, x, positions) -> torch.Tensor:
+    """Encoder self-attention (bidirectional)."""
+    q, k, v = _qkv(p, cfg, x, positions)
+    out = _sdpa(q, k, v, None, cfg.n_heads // cfg.n_kv_heads)
+    return out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
+
+
+def cross_attention(p, cfg: ArchConfig, x, memory, positions) -> torch.Tensor:
+    """Decoder cross-attention over encoder memory (no rope on memory)."""
+    hd = cfg.hd
+    q = _split_heads(x @ p["wq"], cfg.n_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions)
+    k = _split_heads(memory @ p["wk"], cfg.n_kv_heads, hd)
+    v = _split_heads(memory @ p["wv"], cfg.n_kv_heads, hd)
+    out = _sdpa(q, k, v, None, cfg.n_heads // cfg.n_kv_heads)
+    return out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

@@ -3,31 +3,40 @@ chunked prefill and ragged decode steps.
 
 Ports ``src/repro/model/transformer.py`` (``layer_specs``,
 ``pattern_period``, ``init_params``, ``REMAT``, ``_apply_layer``,
-``_run_stack``, ``forward``, ``lm_loss``, ``init_cache``, the cache-slot
-helpers, ``_stack_walk``, ``chunk_step``, ``serve_decode_step``,
-``prefill`` and ``decode_step``).  Differences from the reference:
+``_run_stack``, ``_frontend_embeds``, ``forward``, ``lm_loss``,
+``init_cache``, the cache-slot helpers, ``_stack_walk``, ``chunk_step``,
+``serve_decode_step``, ``prefill`` and ``decode_step``).  Differences
+from the reference:
 
-* Parameters and caches are per layer: ``params["layers"][l]`` and
-  ``cache[l]``.  The reference stacks the layers of each pattern slot
+* Parameters and caches are per layer: ``params["layers"][l]`` (the
+  decoder), ``params["enc_layers"][l]`` (an encoder-decoder's encoder)
+  and ``cache[l]``.  The reference stacks the layers of each pattern slot
   for ``lax.scan``; here a Python loop walks the layers, and
   :mod:`repro_torch.bridge` maps stacked slot ``s``, repeat ``r`` to
   layer ``r·period + s``.  :func:`_run_stack` still puts each period's
   layers under one activation checkpoint, as the reference remats its
-  scanned period body.
+  scanned period body (the encoder's period is one layer).
 * Cache updates are in place (the KV rows, and in
   :func:`serve_decode_step` the Mamba states too); the step functions
   return the cache they were given, so callers read as in the reference.
 * Sharding annotations and ``gather_params_for_compute`` are no-ops on
   one device and are dropped.
 
-Two mixers are ported, attention and Mamba (``model/ssm.py``), each
+The decoder's mixers are attention and Mamba (``model/ssm.py``), each
 with a SwiGLU MLP, a mixture of experts or no FFN: dense decoders, the
 MoE decoders (qwen3-moe, llama4 with its shared expert), falcon-mamba
 and the jamba attention/Mamba interleave with its experts.
 :func:`forward` sums MoE's f32 aux loss over the layers, as the
-reference's does; the serving steps drop it, as the reference's do.  Any
-other layer kind (cross attention, encoders, frontends, M-RoPE) raises
-``NotImplementedError``.
+reference's does; the serving steps drop it, as the reference's do.
+
+The encoder-decoder (seamless-m4t) runs its stub frames through
+``frontend_proj``, a bidirectional encoder stack and ``enc_final_ln``
+into memory, which each decoder layer's cross attention reads in
+:func:`forward`, :func:`prefill` and :func:`decode_step` (recomputing
+memory's k/v at every decode step, as the reference does).  As in the
+reference, :func:`chunk_step` and :func:`serve_decode_step` have no
+cross branch: the continuous engine serves the decoder alone.  M-RoPE and
+the vision frontend (qwen2-vl) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -44,8 +53,8 @@ from ..configs.registry import ArchConfig
 from . import attention as ATT
 from . import mlp as MLP
 from . import ssm as SSM
-from .layers import (device_of, dtype_of, embed, embed_init, make_generator,
-                     rmsnorm, rmsnorm_init, unembed)
+from .layers import (dense_init, device_of, dtype_of, embed, embed_init,
+                     make_generator, rmsnorm, rmsnorm_init, unembed)
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -121,19 +130,14 @@ def _lcm(a, b):
     return a * b // math.gcd(a, b)
 
 
-def check_supported(cfg: ArchConfig) -> List[LayerSpec]:
-    """The decoder's layer specs, or ``NotImplementedError`` for a layer
-    kind the port does not have yet."""
-    if cfg.enc_layers or cfg.frontend_stub or cfg.mrope:
+def check_supported(cfg: ArchConfig, role: str = "decoder") -> List[LayerSpec]:
+    """The layer specs of ``role``'s stack, or ``NotImplementedError``
+    for what the port does not have yet: M-RoPE and the vision frontend
+    (qwen2-vl)."""
+    if cfg.mrope or (cfg.frontend_stub and cfg.family == "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: encoders, frontends and M-RoPE are not ported yet")
-    specs = layer_specs(cfg, "decoder")
-    for spec in specs:
-        if spec.mixer not in ("attn", "mamba") or spec.cross:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {spec} is not ported yet "
-                "(only attention or Mamba mixers without cross attention)")
-    return specs
+            f"{cfg.name}: M-RoPE and the vision frontend are not ported yet")
+    return layer_specs(cfg, role)
 
 
 # ---------------------------------------------------------------------------
@@ -143,10 +147,13 @@ def check_supported(cfg: ArchConfig) -> List[LayerSpec]:
 def _init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec,
                 dtype: torch.dtype) -> Dict:
     p: Dict[str, Any] = {"ln1": rmsnorm_init(cfg.d_model, gen.device)}
-    if spec.mixer == "attn":
+    if spec.mixer in ("attn", "enc_attn"):
         p["mixer"] = ATT.init_attention(gen, cfg, dtype)
     else:
         p["mixer"] = SSM.init_mamba(gen, cfg, dtype)
+    if spec.cross:
+        p["ln_x"] = rmsnorm_init(cfg.d_model, gen.device)
+        p["cross"] = ATT.init_attention(gen, cfg, dtype)
     if spec.ffn == "mlp":
         p["ln2"] = rmsnorm_init(cfg.d_model, gen.device)
         p["ffn"] = MLP.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
@@ -159,7 +166,9 @@ def _init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec,
 def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
                 generator: Optional[torch.Generator] = None) -> Dict:
     """Random weights drawn on ``device`` from ``generator`` (or a new
-    one seeded with ``seed``).  Matmul weights are ``(in, out)``."""
+    one seeded with ``seed``).  Matmul weights are ``(in, out)``.  An
+    encoder-decoder also has ``enc_layers``, ``enc_final_ln`` and
+    ``frontend_proj``."""
     specs = check_supported(cfg)
     dev = device_of(device)
     gen = generator if generator is not None else make_generator(seed, dev)
@@ -171,6 +180,13 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, cfg.vocab, cfg.d_model, dtype)
+    if cfg.enc_layers:
+        p["enc_layers"] = [_init_layer(gen, cfg, spec, dtype)
+                           for spec in check_supported(cfg, "encoder")]
+        p["enc_final_ln"] = rmsnorm_init(cfg.d_model, dev)
+    if cfg.frontend_stub:
+        # learned projection applied to the stub frontend embeddings
+        p["frontend_proj"] = dense_init(gen, cfg.d_model, cfg.d_model, dtype)
     return p
 
 
@@ -189,15 +205,25 @@ def _ffn(p, spec: LayerSpec, cfg: ArchConfig, x):
     return x, None
 
 
+def _cross(p, spec: LayerSpec, cfg: ArchConfig, x, memory, positions):
+    """The cross-attention branch on the residual stream of a decoder
+    layer with ``spec.cross``, given encoder ``memory``; x as it is
+    otherwise."""
+    if not spec.cross or memory is None:
+        return x
+    return x + ATT.cross_attention(p["cross"], cfg, rmsnorm(x, p["ln_x"], cfg.norm_eps),
+                                   memory, positions)
+
+
 # ---------------------------------------------------------------------------
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 def _apply_layer(p, spec: LayerSpec, cfg: ArchConfig, x, positions,
-                 collect: bool = False):
+                 memory=None, collect: bool = False):
     """One layer over the whole sequence: (x, aux, kv).  aux is MoE's f32
     aux loss or None; kv the layer's decode cache with ``collect``, else
-    None."""
+    None (an encoder layer has none)."""
     kv = None
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == "attn":
@@ -208,6 +234,8 @@ def _apply_layer(p, spec: LayerSpec, cfg: ArchConfig, x, positions,
             kv = {"k": k, "v": v}
         else:
             h = r
+    elif spec.mixer == "enc_attn":
+        h = ATT.attention_noncausal(p["mixer"], cfg, h, positions)
     else:
         r = SSM.mamba(p["mixer"], cfg, h, return_state=collect)
         if collect:
@@ -215,23 +243,24 @@ def _apply_layer(p, spec: LayerSpec, cfg: ArchConfig, x, positions,
             kv = {"conv": conv, "ssm": ssm_st}
         else:
             h = r
-    x, aux = _ffn(p, spec, cfg, x + h)
+    x = _cross(p, spec, cfg, x + h, memory, positions)
+    x, aux = _ffn(p, spec, cfg, x)
     return x, aux, kv
 
 
-def _run_stack(params, cfg: ArchConfig, x, positions):
-    """The decoder over the whole sequence: (x, aux summed over the layers
-    in f32).  Each pattern period's layers run as one body under
-    :func:`_maybe_remat`; the tail past the last full period runs
-    without, as in the reference."""
-    specs = check_supported(cfg)
-    layers = params["layers"]
-    period = pattern_period(cfg)
+def _run_stack(layers, cfg: ArchConfig, role: str, x, positions, memory=None):
+    """``role``'s stack (``params["layers"]`` for the decoder,
+    ``params["enc_layers"]`` for the encoder) over the whole sequence:
+    (x, aux summed over the layers in f32).  Each pattern period's layers
+    run as one body under :func:`_maybe_remat`; the tail past the last
+    full period runs without, as in the reference."""
+    specs = check_supported(cfg, role)
+    period = pattern_period(cfg, role)
     repeats = len(specs) // period
 
     def run(x, aux, lo: int, hi: int):
         for i in range(lo, hi):
-            x, a, _ = _apply_layer(layers[i], specs[i], cfg, x, positions)
+            x, a, _ = _apply_layer(layers[i], specs[i], cfg, x, positions, memory)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -243,22 +272,63 @@ def _run_stack(params, cfg: ArchConfig, x, positions):
     return run(x, aux, repeats * period, len(specs))
 
 
-def forward(params, cfg: ArchConfig, tokens: torch.Tensor
+def _frontend_embeds(params, cfg: ArchConfig, stub: torch.Tensor) -> torch.Tensor:
+    """``stub @ frontend_proj`` in the wider of the two dtypes, as JAX
+    promotes (the trainer's stub is bf16 whatever the model's dtype)."""
+    w = params["frontend_proj"]
+    dt = torch.promote_types(stub.dtype, w.dtype)
+    return stub.to(dt) @ w.to(dt)
+
+
+def encode(params, cfg: ArchConfig, enc_frontend: Optional[torch.Tensor]):
+    """The encoder's memory as :func:`forward` and :func:`prefill`
+    compute it, and as :func:`decode_step` reads it: ``enc_frontend``
+    (b, frames, d_model) through ``frontend_proj``, the encoder stack at
+    positions 0..frames-1 and ``enc_final_ln``.  None for a model
+    without an encoder."""
+    if not cfg.enc_layers:
+        return None
+    if enc_frontend is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: pass enc_frontend, the "
+                         "(b, frames, d_model) stub its encoder reads")
+    enc_in = _frontend_embeds(params, cfg, enc_frontend)
+    b, fl = enc_in.shape[:2]
+    epos = torch.arange(fl, device=enc_in.device)[None].expand(b, fl)
+    memory, _ = _run_stack(params["enc_layers"], cfg, "encoder", enc_in, epos)
+    return rmsnorm(memory, params["enc_final_ln"], cfg.norm_eps)
+
+
+def _refuse_frontend(cfg: ArchConfig, frontend: Optional[torch.Tensor]) -> None:
+    if frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the vision frontend stub is not ported yet")
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
+            frontend: Optional[torch.Tensor] = None,
+            enc_frontend: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  tokens: (b, s).  Returns (logits
-    (b, s, vocab) in the model dtype, aux loss f32)."""
+    (b, s, vocab) in the model dtype, aux loss f32).  For an
+    encoder-decoder, ``enc_frontend`` (b, frames, d_model) feeds the
+    encoder.  ``frontend``, the vision stub the reference prepends for a
+    vlm, waits for the vlm (:func:`check_supported`): passing one raises,
+    as the reference ignores it for every other family."""
+    _refuse_frontend(cfg, frontend)
     x = embed(tokens, params["embed"])
     b, seq = tokens.shape
     positions = torch.arange(seq, device=x.device)[None].expand(b, seq)
-    x, aux = _run_stack(params, cfg, x, positions)
+    memory = encode(params, cfg, enc_frontend)
+    x, aux = _run_stack(params["layers"], cfg, "decoder", x, positions, memory)
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return unembed(x, _head(params)), aux
 
 
 def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
-            labels: torch.Tensor) -> torch.Tensor:
+            labels: torch.Tensor, frontend: Optional[torch.Tensor] = None,
+            enc_frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross entropy in f32 plus 0.01 · aux."""
-    logits, aux = forward(params, cfg, tokens)
+    logits, aux = forward(params, cfg, tokens, frontend, enc_frontend)
     lf = logits.float()
     logz = torch.logsumexp(lf, dim=-1)
     gold = lf.gather(-1, labels[..., None].long())[..., 0]
@@ -269,27 +339,40 @@ def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
 # prefill / decode (alternating engine)
 # ---------------------------------------------------------------------------
 
-def prefill(params, cfg: ArchConfig, tokens: torch.Tensor
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
+            frontend: Optional[torch.Tensor] = None,
+            enc_frontend: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Cache]:
     """Full forward that also materializes the decode cache.
     Returns (last-position logits (b, vocab), per-layer cache of
-    ``seq`` rows)."""
+    ``seq`` rows).  ``frontend`` and ``enc_frontend`` as in
+    :func:`forward`; the cache holds the decoder's self-attention rows
+    only (:func:`decode_step` takes memory again)."""
     specs = check_supported(cfg)
+    _refuse_frontend(cfg, frontend)
     x = embed(tokens, params["embed"])
     b, seq = tokens.shape
     positions = torch.arange(seq, device=x.device)[None].expand(b, seq)
+    memory = encode(params, cfg, enc_frontend)
     cache: Cache = []
     for p, spec in zip(params["layers"], specs):
-        x, _, kv = _apply_layer(p, spec, cfg, x, positions, collect=True)
+        x, _, kv = _apply_layer(p, spec, cfg, x, positions, memory, collect=True)
         cache.append(kv)
     x = rmsnorm(x[:, -1:, :], params["final_ln"], cfg.norm_eps)
     return unembed(x[:, 0, :], _head(params)), cache
 
 
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: Cache,
-                cache_len: int) -> Tuple[torch.Tensor, Cache]:
+                cache_len: int, memory: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
     """One decode step at the shared position ``cache_len``.
-    token: (b, 1); returns (logits (b, vocab), cache)."""
+    token: (b, 1); returns (logits (b, vocab), cache).  An
+    encoder-decoder's cross attention reads ``memory`` (b, frames,
+    d_model), its query at position ``cache_len``; memory's k/v are
+    projected again at every step, as in the reference."""
+    cross_pos = None if memory is None else torch.full(
+        (token.shape[0], 1), cache_len, dtype=torch.long, device=token.device)
+
     def layer(p, spec, x, lc):
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         if spec.mixer == "attn":
@@ -301,7 +384,8 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: Cache,
             h, conv, ssm_st = SSM.mamba_decode(p["mixer"], cfg, h,
                                                lc["conv"], lc["ssm"])
             nc = {"conv": conv, "ssm": ssm_st}
-        return _ffn(p, spec, cfg, x + h)[0], nc
+        x = _cross(p, spec, cfg, x + h, memory, cross_pos)
+        return _ffn(p, spec, cfg, x)[0], nc
 
     x, cache = _stack_walk(params, cfg, embed(token, params["embed"]),
                            cache, layer)
@@ -361,6 +445,17 @@ def cache_slot_write(cache: Cache, sub: Cache, i: Union[int, torch.Tensor]) -> C
             dst = t[i:i + 1]
             if src.data_ptr() != dst.data_ptr():
                 dst.copy_(src)
+    return cache
+
+
+def merge_cache_slot(cache: Cache, pre: Cache, slot: int) -> Cache:
+    """Write a b=1 prefill cache into batch slot ``slot`` of ``cache``:
+    an attention layer's ``plen`` KV rows, a Mamba layer's conv tail and
+    SSM state."""
+    for lc, pc in zip(cache, pre):
+        for name, t in lc.items():
+            src = pc[name]
+            t[slot:slot + 1, :src.shape[1]] = src.to(t.dtype)
     return cache
 
 

@@ -85,6 +85,11 @@ class Trainer:
     def run_step(self, step: int) -> Dict[str, float]:
         batch = {k: torch.from_numpy(v).to(self.device, torch.long)
                  for k, v in self.data.batch(step).items()}
+        if self.arch.enc_layers:
+            # the encoder's stub frames: zeros, bf16, as in the reference
+            batch["enc_frontend"] = torch.zeros(
+                (self.cfg.global_batch, self.arch.frontend_len, self.arch.d_model),
+                dtype=torch.bfloat16, device=self.device)
         self.params, self.opt_state, metrics = self.step_fn(
             self.params, self.opt_state, batch)
         # one device read per step, as the reference's float() of each metric

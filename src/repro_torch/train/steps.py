@@ -5,13 +5,15 @@ into ``n_micro`` micro-batches, takes each one's gradients with
 ``torch.autograd.grad`` (in the parameters' dtype, as
 ``jax.value_and_grad`` gives them), sums them in f32 and hands the mean
 to AdamW.  The step updates the parameters and optimizer state in place
-and returns the objects it was given.  Encoder and frontend inputs are
-not ported (``transformer.check_supported`` refuses those archs), so a
-batch is ``tokens`` and ``labels`` only.
+and returns the objects it was given.  A batch is ``tokens`` and
+``labels``, and for an encoder-decoder also ``enc_frontend`` (b, frames,
+d_model), split into micro-batches with them (:func:`_batch_kw`).  The
+vlm's ``frontend`` waits for qwen2-vl (``transformer.check_supported``
+refuses it).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -19,6 +21,11 @@ from ..configs.registry import ArchConfig
 from ..model import transformer as T
 from ..optim import adamw
 from ..tree import leaves, with_leaves
+
+
+def _batch_kw(cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The model inputs of ``batch`` beside the tokens."""
+    return {"enc_frontend": batch["enc_frontend"]} if cfg.enc_layers else {}
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, n_micro: int):
@@ -39,11 +46,13 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, n_micro: int):
         if gb % n_micro:
             raise ValueError(f"batch of {gb} rows does not split into "
                              f"{n_micro} micro-batches")
-        micro = zip(batch["tokens"].split(gb // n_micro),
-                    batch["labels"].split(gb // n_micro))
+        mb = gb // n_micro
+        extra = _batch_kw(cfg, batch)
+        micro = zip(batch["tokens"].split(mb), batch["labels"].split(mb),
+                    *(x.split(mb) for x in extra.values()))
         losses, grads = [], None
-        for i, (tok, lab) in enumerate(micro):
-            loss = T.lm_loss(params, cfg, tok, lab)
+        for i, (tok, lab, *ex) in enumerate(micro):
+            loss = T.lm_loss(params, cfg, tok, lab, **dict(zip(extra, ex)))
             g = torch.autograd.grad(loss, flat_p)
             losses.append(loss.detach())
             if n_micro == 1:
@@ -74,15 +83,16 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, n_micro: int):
 def make_prefill_step(cfg: ArchConfig):
     @torch.no_grad()
     def prefill_step(params, batch):
-        return T.prefill(params, cfg, batch["tokens"])
+        return T.prefill(params, cfg, batch["tokens"], **_batch_kw(cfg, batch))
     return prefill_step
 
 
 def make_serve_step(cfg: ArchConfig):
     """One decode step over a full KV cache at the shared position
-    ``batch["cache_len"]`` (an int)."""
+    ``batch["cache_len"]`` (an int), with an encoder-decoder's
+    ``batch["memory"]`` if given."""
     @torch.no_grad()
     def serve_step(params, batch):
         return T.decode_step(params, cfg, batch["token"], batch["cache"],
-                             batch["cache_len"])
+                             batch["cache_len"], batch.get("memory"))
     return serve_step

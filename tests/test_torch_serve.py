@@ -52,6 +52,8 @@ GEMMA3 = (jax_get_arch("gemma3_4b").smoke().scaled(n_layers=7, dtype="float32"),
 MOE = {arch: (jax_get_arch(arch).smoke().scaled(dtype="float32"),
               get_arch(arch).smoke().scaled(dtype="float32"))
        for arch in ("qwen3_moe_30b_a3b", "llama4_scout_17b_a16e", "jamba_v0_1_52b")}
+SEAMLESS = (jax_get_arch("seamless_m4t_large_v2").smoke().scaled(dtype="float32"),
+            get_arch("seamless_m4t_large_v2").smoke().scaled(dtype="float32"))
 
 
 @functools.lru_cache(maxsize=8)
@@ -231,6 +233,26 @@ def test_moe_ragged_interleave_matches_reference(arch, kernels):
     assert eng.ticks_overlap > 0
     assert [r.generated for r in reqs] == jax_continuous(
         prompts, gen, max_len, batch=2, chunk=chunk, cfgs=MOE[arch],
+        use_pallas=kernels, pallas_opts=opts)
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_seamless_ragged_interleave_matches_reference(kernels):
+    """The encoder-decoder at smoke through the continuous engine, which
+    in both packages runs its decoder alone (the chunk and decode steps
+    have no cross attention): ragged prompts make mixed ticks; greedy
+    tokens equal the reference engine's, on the plain route and with the
+    thresholds lowered to 16 on both sides (``test_serve.py:157``), where
+    full chunks take flash and the planned matmul."""
+    gen, max_len, chunk = 6, 64, 16
+    plens = [35, 19, 26]
+    prompts = [prompt(i + 95, pl) for i, pl in enumerate(plens)]
+    opts = dict(min_attn_q=16, min_matmul_rows=16)
+    eng, reqs = port_continuous(prompts, gen, max_len, batch=2, chunk=chunk,
+                                cfgs=SEAMLESS, use_kernels=kernels, kernel_opts=opts)
+    assert eng.ticks_overlap > 0
+    assert [r.generated for r in reqs] == jax_continuous(
+        prompts, gen, max_len, batch=2, chunk=chunk, cfgs=SEAMLESS,
         use_pallas=kernels, pallas_opts=opts)
 
 

@@ -70,6 +70,17 @@ def batch(cfg, seed=0, b=BATCH, s=SEQ):
     return toks[:, :-1], toks[:, 1:]
 
 
+def enc_inputs(cfg, seed, b):
+    """An encoder-decoder's stub frames (b, frontend_len, d_model) in the
+    model's dtype, for each package: ``{}`` for any other arch."""
+    if not cfg.enc_layers:
+        return {}, {}
+    x = np.random.RandomState(100 + seed).standard_normal(
+        (b, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    return ({"enc_frontend": jnp.asarray(x, cfg.dtype)},
+            {"enc_frontend": torch.from_numpy(x).to(getattr(torch, cfg.dtype))})
+
+
 def close(t: torch.Tensor, j, tol):
     np.testing.assert_allclose(t.detach().float().numpy(),
                                np.asarray(j, np.float32), **tol)
@@ -266,7 +277,8 @@ def jax_train_run(arch, n_micro, steps=3, dtype="float32"):
     for s in range(steps):
         tok, lab = batch(jcfg, seed=10 + s, b=4)
         jp, state, m = step(jp, state, {"tokens": jnp.asarray(tok),
-                                        "labels": jnp.asarray(lab)})
+                                        "labels": jnp.asarray(lab),
+                                        **enc_inputs(jcfg, s, 4)[0]})
         out.append((float(m["loss"]), float(m["grad_norm"]), float(m["lr"])))
         if first is None:
             first = jax.tree.map(np.asarray, jp)
@@ -375,8 +387,10 @@ def test_adamw_update_bf16_matches_reference(grad_scale):
 # 96 tokens in three of its four MoE layers when XLA and torch round bf16
 # activations differently, and its Mamba layers carry each such token's
 # change to every later position, so its bf16 logits differ by ~12% RMS
-# (3% with the experts off).  Its f32 steps are held above.
-BF16_ARCHS = tuple(a for a in ARCHS if a != "jamba_v0_1_52b")
+# (3% with the experts off).  Its f32 steps are held above.  The
+# encoder-decoder (no router) trains on bf16 stub frames; its f32 steps
+# are held in tests/test_torch_encdec.py.
+BF16_ARCHS = tuple(a for a in ARCHS if a != "jamba_v0_1_52b") + ("seamless_m4t_large_v2",)
 
 
 @pytest.mark.parametrize("n_micro", [1, 2])
@@ -398,7 +412,8 @@ def test_train_steps_bf16_track_reference(arch, n_micro):
     for s, (jloss, jnorm, jlr) in enumerate(want):
         tok, lab = batch(tcfg, seed=10 + s, b=4)
         _, _, m = step(params, state, {"tokens": torch.from_numpy(tok).long(),
-                                       "labels": torch.from_numpy(lab).long()})
+                                       "labels": torch.from_numpy(lab).long(),
+                                       **enc_inputs(tcfg, s, 4)[1]})
         assert rel(float(m["loss"]), jloss) <= 1e-3, (s, float(m["loss"]), jloss)
         assert rel(float(m["grad_norm"]), jnorm) <= 2e-2, (s, float(m["grad_norm"]), jnorm)
         assert rel(float(m["lr"]), jlr) <= 1e-6
