@@ -23,15 +23,20 @@ Phases, each of which exits nonzero on failure:
    with its offset from a device scalar, and as one slot (batch row 1) of
    a larger cache with offset and row from device scalars, the serving
    chunk's launch.  The matmul cases include
-   gemma3's MLP shapes and seamless's (its encoder's over 4096 stub
-   frames); the flash cases the ragged chunks granite's, qwen3-moe's,
-   gemma3's and seamless's traffic send (head dims 64, 128 and 256; 16
-   heads over 16 KV heads for seamless), a gemma3 chunk over a 1536-row
-   prefix and seamless's 512-row prefill; beside them
+   gemma3's MLP shapes, seamless's (its encoder's over 4096 stub
+   frames) and qwen2-vl's (a 256-row chunk and its 768-row prefill); the
+   flash cases the ragged chunks granite's, qwen3-moe's, gemma3's,
+   seamless's and qwen2-vl's traffic send (head dims 64, 128 and 256; 16
+   heads over 16 KV heads for seamless, 28 over 4 for qwen2-vl), a gemma3
+   chunk over a 1536-row prefix and the prefills of seamless (512 rows)
+   and qwen2-vl (768); beside them
    stand which backend ``scaled_dot_product_attention`` takes for the
    library call and each backend's time, and, for both kernels, a sweep
    of the launch geometry at the serving shapes (for flash the ring
-   depth, at head dims 64, 128 and 256);
+   depth, at head dims 64, 128 and 256).  Last, the port's kernel bench
+   (``repro_torch.kernels.bench``): its smoke gate, every kernel at the
+   reference bench's smoke shapes against its plain version, must count
+   no failure, and its timings are printed;
 3. serve — ``granite_3_2b`` at full width in bf16 with seeded random
    weights through ``ContinuousEngine`` (chunk 256, 4 slots, 8 requests of
    256-1024 prompt tokens, 32 new tokens each), served twice by one
@@ -95,12 +100,30 @@ Phases, each of which exits nonzero on failure:
    run, and a teacher-forced ``forward`` over the prompt and the fed
    tokens against the prefill's and every decode step's logits; the
    encoder, the whole prefill and one decode step are profiled beside
-   their bounds (``encdec_work``).  (b) ``phase_serve``: the engine serves
+   their bounds (``model_work``).  (b) ``phase_serve``: the engine serves
    its decoder alone, as the reference's does (its steps have no cross
    attention), with the same traffic and checks as phases 3-6;
-8. train — the training path (``transformer.lm_loss``, ``train.steps``,
+8. vision-language — ``qwen2_vl_7b`` at full width and depth (28 layers,
+   d_model 3584, 28 heads over 4 KV heads of head dim 128, d_ff 18944,
+   M-RoPE, a 256-row vision stub; 7.628 B parameters), after seamless's
+   engine and weights are freed.  (a) Its own path through
+   ``make_prefill_step`` and ``make_serve_step``: a (1, 256, 3584) bf16
+   stub and a 512-token prompt prefilled with the kernels on (the MLP's
+   three products through the matmul kernel and the causal attention
+   through flash in all 28 layers, 768 rows), then 16 greedy decode steps
+   at M-RoPE positions (L, L, L), which launch no kernel.  The prefill's
+   logits are held against the same prefill with the kernels off and
+   against an f32 run, and the decode steps' logits against plain bf16
+   decode steps fed the same tokens from the plain prefill's cache.  No
+   teacher-forced check: the reference gives a decode step other M-RoPE
+   positions than ``forward`` gives the same row.  The prefill and one
+   decode step are profiled beside their bounds (``model_work``).
+   (b) ``phase_serve``: the engine serves it with plain rope, as the
+   reference's does (its steps pass no M-RoPE positions), with the same
+   traffic and checks as phases 3-7;
+9. train — the training path (``transformer.lm_loss``, ``train.steps``,
    ``optim.adamw``, ``train.checkpoint``, ``Trainer``) on
-   ``granite_3_2b``, after seamless's engine and weights are freed, with
+   ``granite_3_2b``, after qwen2-vl's engine and weights are freed, with
    the kernel mode off, as the reference trains: (a) two train steps in
    f32 at full width and 2 layers (batch 2, seq 128) on the card and on
    the CPU from the same weights and batches, the losses and gradient
@@ -374,7 +397,11 @@ MM_CASES = [(256, 2048, 8192), (256, 8192, 2048), (200, 2048, 8192),
             (4096, 1024, 8192), (4096, 8192, 1024), (256, 1024, 8192),
             (256, 8192, 1024),
             # ... and the decoder's over the 512-token prefill prompt
-            (512, 1024, 8192), (512, 8192, 1024)]
+            (512, 1024, 8192), (512, 8192, 1024),
+            # qwen2-vl's MLP: gate/up and down of a full serving chunk, then
+            # of its prefill (256 stub rows and a 512-token prompt)
+            (256, 3584, 18944), (256, 18944, 3584), (768, 3584, 18944),
+            (768, 18944, 3584)]
 
 
 def phase_matmul(gen: torch.Generator) -> dict:
@@ -430,11 +457,14 @@ def phase_matmul(gen: torch.Generator) -> dict:
 # global-layer heads (8 over 4 kv heads, head dim 256), and its chunk at
 # offset 1280 over a 1536-row prefix (past the local window); then
 # seamless-m4t's decoder (16 heads over 16 kv heads, head dim 64: no
-# grouping), its full and ragged serving chunks and its 512-row prefill
+# grouping), its full and ragged serving chunks and its 512-row prefill;
+# then qwen2-vl's (28 heads over 4 kv heads, head dim 128: groups of 7),
+# the same chunks and its 768-row prefill (256 stub rows and 512 text)
 GRANITE_HEADS = (32, 8, 64)
 QWEN3_HEADS = (32, 4, 128)
 GEMMA3_HEADS = (8, 4, 256)
 SEAMLESS_HEADS = (16, 16, 64)
+QWEN2VL_HEADS = (28, 4, 128)
 FLASH_QWEN3_CASE = (1, 256, 1024, 768, *QWEN3_HEADS)
 FLASH_GEMMA3_CASE = (1, 256, 1024, 768, *GEMMA3_HEADS)
 FLASH_SEAMLESS_CASE = (1, 256, 1024, 768, *SEAMLESS_HEADS)
@@ -452,7 +482,10 @@ FLASH_CASES = [(1, 256, 1024, 768, *GRANITE_HEADS), (1, 256, 768, 512, *GRANITE_
                (4, 256, 1024, 768, *GEMMA3_HEADS), (1, 256, 1536, 1280, *GEMMA3_HEADS),
                FLASH_SEAMLESS_CASE, (1, 44, 384, 256, *SEAMLESS_HEADS),
                (1, 128, 640, 512, *SEAMLESS_HEADS), (1, 132, 1024, 768, *SEAMLESS_HEADS),
-               (1, 232, 1024, 768, *SEAMLESS_HEADS), (1, 512, 512, 0, *SEAMLESS_HEADS)]
+               (1, 232, 1024, 768, *SEAMLESS_HEADS), (1, 512, 512, 0, *SEAMLESS_HEADS),
+               (1, 256, 1024, 768, *QWEN2VL_HEADS), (1, 44, 384, 256, *QWEN2VL_HEADS),
+               (1, 128, 640, 512, *QWEN2VL_HEADS), (1, 132, 1024, 768, *QWEN2VL_HEADS),
+               (1, 232, 1024, 768, *QWEN2VL_HEADS), (1, 768, 768, 0, *QWEN2VL_HEADS)]
 FLASH_CACHE_LEN = 1600
 
 
@@ -785,6 +818,18 @@ def phase_selective_scan(gen: torch.Generator) -> dict:
                        library_ms=None)
     rec["max_abs_err"] = worst
     return rec
+
+
+def phase_bench() -> None:
+    """The port's kernel bench on the card: its smoke gate must count no
+    failure; then its timings (``repro_torch.kernels.bench``)."""
+    from repro_torch.kernels import bench
+
+    print("[kernels] repro_torch.kernels.bench --smoke")
+    failures = bench.smoke()
+    require(failures == 0, f"kernel bench smoke: {failures} failures")
+    print("[kernels] repro_torch.kernels.bench timings")
+    bench.run()
 
 
 def kernel_modules() -> dict:
@@ -1270,34 +1315,49 @@ ENCDEC_PROMPT = 512
 ENCDEC_STEPS = 16
 
 
-def encdec_work(cfg, frames: int, seq: int, kv: int):
-    """Operations and bytes of the encoder-decoder's path, as the port
-    runs it: (bf16 FLOPs, f32 FLOPs, bytes) of the encoder over
-    ``frames`` stub frames, and of the decoder over ``seq`` new tokens
-    that attend causally to ``kv`` rows in all (``seq == kv`` for the
-    prefill; one token over the whole cache for a decode step, whose
-    plain attention reads every row) and across to memory.  The weight
-    products run on the tensor cores in bf16; the plain attention
-    (``_sdpa``: the encoder's, the cross attention, the decode step's)
-    runs its two einsums in f32, kernel B its causal pairs in bf16.  Bytes:
-    each weight read once, the stub, memory and the logits' rows once."""
+def counted(fn):
+    """``fn()`` with every kernel's launch count set to 0 just before and
+    read just after: (its result, the counts)."""
+    mods = kernel_modules()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: mod.LAUNCHES for name, mod in mods.items()}
+
+
+def model_work(cfg, frames: int, seq: int, kv: int, stub: int = 0):
+    """Operations and bytes of a model's path, as the port runs it: (bf16
+    FLOPs, f32 FLOPs, bytes) of an encoder-decoder's encoder over
+    ``frames`` stub frames (zeros without an encoder), and of the decoder
+    over ``seq`` new rows that attend causally to ``kv`` rows in all
+    (``seq == kv`` for the prefill; one token over the whole cache for a
+    decode step, whose plain attention reads every row) and, with cross
+    attention, across to memory; ``stub`` rows of a vlm's vision stub go
+    through ``frontend_proj`` first (they are among the ``seq`` rows).
+    The weight products run on the tensor cores in bf16; the plain
+    attention (``_sdpa``: the encoder's, the cross attention, the decode
+    step's) runs its two einsums in f32, kernel B its causal pairs in
+    bf16.  Bytes: each weight read once, the stub, memory and the logits'
+    rows once."""
     d, f, hq, hkv = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
     layer_w = d * (2 * hq + 2 * hkv) + 3 * d * f                 # attention + MLP
     proj = lambda rows: 2 * rows * d * (2 * hq + 2 * hkv)        # noqa: E731
     enc = (cfg.enc_layers * (proj(frames) + 6 * frames * d * f) + 2 * frames * d * d,
            cfg.enc_layers * 4 * frames * frames * hq,
-           2 * (cfg.enc_layers * layer_w + d * d + 2 * frames * d))
-    cross = 2 * seq * d * 2 * hq + 2 * frames * d * 2 * hkv      # q, o; memory's k, v
+           2 * (cfg.enc_layers * layer_w + d * d + 2 * frames * d) if cfg.enc_layers else 0)
+    # cross attention: q, o; memory's k, v (and their weights, read once)
+    cross = 2 * seq * d * 2 * hq + 2 * frames * d * 2 * hkv if cfg.cross_attention else 0
+    cross_w = d * (2 * hq + 2 * hkv) if cfg.cross_attention else 0
     if seq == kv:                  # prefill: kernel B's causal pairs
         attn_bf16, attn_f32 = 4 * cfg.hd * cfg.n_heads * seq * (seq + 1) // 2, 0
     else:                          # decode: plain attention over the cache
         attn_bf16, attn_f32 = 0, 4 * seq * kv * hq
     dec_bf16 = (cfg.n_layers * (proj(seq) + cross + 6 * seq * d * f + attn_bf16)
-                + 2 * d * cfg.vocab)
+                + 2 * d * cfg.vocab + 2 * stub * d * d)
     dec_f32 = cfg.n_layers * (attn_f32 + 4 * seq * frames * hq)
-    dec_layer_w = layer_w + d * (2 * hq + 2 * hkv)                # and cross attention
-    dec_bytes = 2 * (cfg.n_layers * (dec_layer_w + frames * d + 2 * kv * hkv)
-                     + d * cfg.vocab + cfg.vocab)
+    dec_bytes = 2 * (cfg.n_layers * (layer_w + cross_w + frames * d + 2 * kv * hkv)
+                     + d * cfg.vocab + cfg.vocab + (d * d + stub * d if stub else 0))
     return enc, (dec_bf16, dec_f32, dec_bytes)
 
 
@@ -1341,14 +1401,6 @@ def phase_encdec(gpu: str) -> dict:
     batch = {"tokens": prompt, "enc_frontend": enc}
     prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
     prefill_f32 = make_prefill_step(cfg.scaled(dtype="float32"))
-    mods = kernel_modules()
-
-    def counted(fn):
-        for mod in mods.values():
-            mod.LAUNCHES = 0
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {name: mod.LAUNCHES for name, mod in mods.items()}
 
     with kernel_mode(enabled=True):
         prefill_step(params, batch)                       # warm-up
@@ -1418,8 +1470,8 @@ def phase_encdec(gpu: str) -> dict:
     require(ok, "decode steps with memory disagree with the teacher-forced forward")
 
     # where the time goes: the encoder alone, the whole prefill, a decode step
-    enc_w, dec_w = encdec_work(cfg, frames, plen, plen)
-    _, step_w = encdec_work(cfg, frames, 1, max_len)
+    enc_w, dec_w = model_work(cfg, frames, plen, plen)
+    _, step_w = model_work(cfg, frames, 1, max_len)
     with torch.no_grad(), kernel_mode(enabled=True):
         e_wall, e_busy = profile_step(f"encoder ({frames} frames: frontend_proj, "
                                       f"{n_enc} layers, enc_final_ln)",
@@ -1444,12 +1496,127 @@ def phase_encdec(gpu: str) -> dict:
     return {k: launches[k] + mem_launches[k] + dec_launches[k] for k in launches}
 
 
+VLM_ARCH = "qwen2_vl_7b"
+VLM_PARAMS_B = 7.628             # jax.eval_shape of the reference's init_params
+VLM_PROMPT = 512
+VLM_STEPS = 16
+
+
+def phase_vlm(gpu: str) -> dict:
+    """Phase 8 (a) (see the module docstring): the vlm's own path at full
+    width.  Returns the kernel launches of its prefill and decode run."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.model import transformer as T
+    from repro_torch.model.kernel_mode import kernel_mode
+    from repro_torch.model.layers import make_generator
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+    from repro_torch.tree import leaves, map_tree
+
+    cfg = get_arch(VLM_ARCH)
+    carried = collect_previous_phase()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params)) / 1e9
+    print(f"[vlm] {cfg.name}: {describe(cfg)}, M-RoPE, a {cfg.frontend_len}-row vision "
+          f"stub, vocab {cfg.vocab}, {cfg.dtype}: {n_params:.3f} B parameters, init "
+          f"{time.perf_counter() - t0:.1f} s; {carried}")
+    require(abs(n_params - VLM_PARAMS_B) <= 0.001,
+            f"{n_params:.4f} B parameters, expected {VLM_PARAMS_B}")
+
+    gen = make_generator(1, dev)
+    fl, plen = cfg.frontend_len, VLM_PROMPT
+    rows = fl + plen
+    stub = torch.randn((1, fl, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    prompt = torch.randint(2, cfg.vocab, (1, plen), generator=gen, device=dev)
+    batch = {"tokens": prompt, "frontend": stub}
+    prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+
+    with kernel_mode(enabled=True):
+        prefill_step(params, batch)                       # warm-up
+        (logits, pre), launches = counted(lambda: prefill_step(params, batch))
+    want = {"matmul": 3 * cfg.n_layers, "flash_attention": cfg.n_layers, "scan_gate": 0,
+            "selective_scan": 0}
+    print(f"  prefill, a {fl}-row stub and a {plen}-token prompt ({rows} rows), kernels "
+          f"on: launches {launches} (expected {want}: the SwiGLU MLP's three products "
+          f"and kernel B in every layer)")
+    require(launches == want, f"prefill launches {launches}, expected {want}")
+
+    # greedy decode steps from the merged prefill cache, at M-RoPE (L, L, L)
+    max_len = rows + VLM_STEPS
+
+    def decode(pre_cache, first, fed=None):
+        cache = T.merge_cache_slot(T.init_cache(cfg, 1, max_len, dev), pre_cache, 0)
+        tok, toks, out = first, [first], []
+        for i in range(VLM_STEPS):
+            lg, cache = serve_step(params, {"token": tok, "cache": cache,
+                                            "cache_len": rows + i})
+            out.append(lg.float())
+            tok = lg.argmax(-1)[:, None] if fed is None else fed[:, i + 1:i + 2]
+            toks.append(tok)
+        return torch.cat(out, 0), torch.cat(toks, 1)
+    first = logits.argmax(-1)[:, None]
+    with kernel_mode(enabled=True):
+        (step_logits, generated), dec_launches = counted(lambda: decode(pre, first))
+    require(all(n == 0 for n in dec_launches.values()),
+            f"a kernel launched in a decode step: {dec_launches}")
+    require(bool(((generated >= 0) & (generated < cfg.vocab)).all()), "token id out of range")
+    print(f"  {VLM_STEPS} greedy decode steps (make_serve_step, M-RoPE (L, L, L)): no kernel "
+          f"launch (one row: below min_matmul_rows; decode attention is plain); tokens "
+          f"{generated[0, :8].tolist()}...")
+
+    # the prefill's logits: kernels against the plain bf16 path and an f32
+    # run; the decode steps against plain ones fed the same tokens from the
+    # plain prefill's cache
+    with torch.no_grad(), kernel_mode(enabled=False):
+        plain, plain_pre = prefill_step(params, batch)
+        plain_steps, _ = decode(plain_pre, first, fed=generated)
+        del plain_pre
+        f32 = map_tree(torch.Tensor.float, params)
+        ref32, _ = make_prefill_step(cfg.scaled(dtype="float32"))(
+            f32, {"tokens": prompt, "frontend": stub.float()})
+        del f32
+    compare_logits(f"prefill logits {tuple(logits.shape)}", logits.float(), plain.float(),
+                   ref32.float(), relative=False)
+    rel = rms(step_logits - plain_steps) / rms(plain_steps)
+    worst = float((step_logits - plain_steps).abs().max())
+    agree = float((step_logits.argmax(-1) == plain_steps.argmax(-1)).float().mean())
+    ok = rel <= LOGIT_RMS_TOL and worst <= LOGIT_MAX_TOL
+    print(f"  {VLM_STEPS} decode steps' logits {tuple(step_logits.shape)} from the kernels' "
+          f"prefill cache vs plain bf16 from the plain one, fed the same tokens: rms_rel="
+          f"{rel:.3e} (tol {LOGIT_RMS_TOL}) max_abs_err={worst:.3e} (tol {LOGIT_MAX_TOL}); "
+          f"argmax agreement {agree:.4f} {'PASS' if ok else 'FAIL'}")
+    require(ok, "the decode steps after the kernels' prefill disagree with the plain path")
+
+    # where the time goes: the whole prefill and one decode step
+    _, pre_w = model_work(cfg, 0, rows, rows, stub=fl)
+    _, step_w = model_work(cfg, 0, 1, max_len)
+    with torch.no_grad(), kernel_mode(enabled=True):
+        p_wall, p_busy = profile_step(f"prefill ({fl} stub rows and a {plen}-token prompt)",
+                                      lambda: prefill_step(params, batch), 3, False)
+        step_cache = T.init_cache(cfg, 1, max_len, dev)
+        s_wall, s_busy = profile_step(
+            f"decode step (cache_len {rows}, kv {max_len})",
+            lambda: serve_step(params, {"token": first, "cache": step_cache,
+                                        "cache_len": rows}), 5, False)
+    p_bound, s_bound = work_bound(pre_w), work_bound(step_w)
+    print(f"  prefill wall {p_wall:.2f} / busy {p_busy:.2f} ms against a bound of "
+          f"{p_bound:.2f} ms ({pre_w[0] / 1e12:.2f} TFLOP bf16, {pre_w[2] / 1e9:.2f} GB); "
+          f"decode step wall {s_wall:.2f} / busy {s_busy:.2f} ms against {s_bound:.2f} ms "
+          f"({step_w[2] / 1e9:.2f} GB, {step_w[1] / 1e9:.2f} GFLOP f32 attention); phase "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: "
+          f"{gpu}")
+    return {k: launches[k] + dec_launches[k] for k in launches}
+
+
 TRAIN_STEPS = 8
 TRAIN_BATCH, TRAIN_SEQ = 8, 256
 
 
 def phase_train(gpu: str) -> None:
-    """Phase 8 (see the module docstring)."""
+    """Phase 9 (see the module docstring)."""
     print(f"[train] {collect_previous_phase()}")
     mods = kernel_modules()
     for mod in mods.values():
@@ -1698,6 +1865,7 @@ def main() -> int:
         gen.manual_seed(0)
         records = [phase_matmul(gen), phase_flash(gen), phase_scan_gate(gen),
                    phase_selective_scan(gen)]
+        phase_bench()
         # each path's counts, read around its own serve run
         granite = phase_serve(gpu, "granite_3_2b", ("matmul", "flash_attention"))
         falcon = phase_serve(gpu, "falcon_mamba_7b", ("scan_gate",),
@@ -1707,13 +1875,16 @@ def main() -> int:
         qwen3_moe = phase_serve(gpu, "qwen3_moe_30b_a3b", ("flash_attention",))
         encdec = phase_encdec(gpu)
         seamless = phase_serve(gpu, ENCDEC_ARCH, ("matmul", "flash_attention"))
+        vlm = phase_vlm(gpu)
+        qwen2_vl = phase_serve(gpu, VLM_ARCH, ("matmul", "flash_attention"))
         phase_train(gpu)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     for rec in records:
         rec["launches"] = sum(run[rec["name"]] for run in (granite, falcon, gemma3,
-                                                           qwen3_moe, encdec, seamless))
+                                                           qwen3_moe, encdec, seamless,
+                                                           vlm, qwen2_vl))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cases")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

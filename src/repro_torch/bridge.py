@@ -28,7 +28,7 @@ import torch
 
 from .configs.registry import ArchConfig
 from .model.layers import device_of
-from .model.transformer import check_supported, pattern_period
+from .model.transformer import layer_specs, pattern_period
 from .optim.adamw import AdamWState
 from .tree import map_tree
 
@@ -60,7 +60,7 @@ def _unstack(stack: Dict, cfg: ArchConfig, pick: Callable,
              role: str = "decoder") -> List[Any]:
     """Per-layer list from ``role``'s ``{"slots", "tail"}`` stack."""
     period = pattern_period(cfg, role)
-    n = len(check_supported(cfg, role))
+    n = len(layer_specs(cfg, role))
     repeats = n // period
     layers: List[Any] = [None] * n
     for s, slot in enumerate(stack["slots"]):

@@ -12,7 +12,9 @@ to the CPU, where the kernels' plain versions run.
 * :class:`ServeEngine` — the alternating baseline: whole-prompt prefill
   into a slot, then lock-step decode of every slot at a shared
   ``max(lengths)`` cache length.
-  It refuses an encoder-decoder, whose prefill needs encoder input.
+  It refuses an encoder-decoder, whose prefill needs encoder input.  A
+  vlm's prefill takes no vision stub, as in the reference, and its
+  decode steps run at M-RoPE positions (L, L, L).
 * :class:`ContinuousEngine` — per-request FIFO admission into free
   slots (each zeroed first), prompt prefill in fixed-size chunks
   interleaved with decode ticks, ragged per-slot cache lengths and paged
@@ -24,7 +26,8 @@ to the CPU, where the kernels' plain versions run.
   when it retires.  With ``use_kernels=True`` the layers route through
   the Hopper kernels (see :mod:`repro_torch.model.kernel_mode`).  As in
   the reference, its steps have no cross attention: an encoder-decoder
-  (seamless-m4t) is served as its decoder alone.
+  (seamless-m4t) is served as its decoder alone; and they pass no M-RoPE
+  positions: the vlm (qwen2-vl) is served with plain rope.
 
 The reference jit-compiles each decode tick and each prefill-chunk tick
 into one dispatch, with the cache and state donated, and fuses up to 16

@@ -7,7 +7,10 @@ Ports ``src/repro/model/attention.py``: ``_qkv``, ``_sdpa``,
 Sliding-window layers keep their mask.  The encoder and cross attention
 are plain ``_sdpa`` with no mask, as in the reference: no kernel runs
 them.  ``_sdpa_chunked`` (the reference's ``ATTN_CHUNK``, which only its
-dry run sets) waits for a caller, and M-RoPE for qwen2-vl.
+dry run sets) waits for a caller.  qwen2-vl's M-RoPE applies where
+``attention`` and ``decode_attention`` are given ``mrope_positions``;
+``chunk_attention`` and ``paged_decode_attention`` pass none, so the
+serving engine runs qwen2-vl with plain rope, as the reference's does.
 
 The reference's functions are pure; here the cache updates are made in
 place (the returned cache tensors are the ones passed in), which saves a
@@ -23,7 +26,7 @@ import torch
 
 from ..configs.registry import ArchConfig
 from .kernel_mode import mode
-from .layers import apply_rope, dense_init, rmsnorm, rmsnorm_init
+from .layers import apply_mrope, apply_rope, dense_init, rmsnorm, rmsnorm_init
 
 NEG_INF = -2.3819763e38
 
@@ -52,9 +55,10 @@ def _split_heads(x, n, hd):
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
-def _qkv(p, cfg: ArchConfig, x, positions):
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE is not ported yet")
+def _qkv(p, cfg: ArchConfig, x, positions, mrope_positions=None):
+    """q, k, v with rope, or with M-RoPE where the config has it and
+    ``mrope_positions`` (..., seq, 3) are given (else plain rope at
+    ``positions``, as in the reference)."""
     hd = cfg.hd
     q = _split_heads(x @ p["wq"], cfg.n_heads, hd)
     k = _split_heads(x @ p["wk"], cfg.n_kv_heads, hd)
@@ -62,6 +66,8 @@ def _qkv(p, cfg: ArchConfig, x, positions):
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.mrope and mrope_positions is not None:
+        return apply_mrope(q, mrope_positions), apply_mrope(k, mrope_positions), v
     return apply_rope(q, positions), apply_rope(k, positions), v
 
 
@@ -90,9 +96,9 @@ def causal_mask(sq: int, window: int = 0, device=None) -> torch.Tensor:
 
 
 def attention(p, cfg: ArchConfig, x, positions, *, window: int = 0,
-              return_kv: bool = False):
+              mrope_positions=None, return_kv: bool = False):
     """Training/prefill self-attention (causal, optional sliding window)."""
-    q, k, v = _qkv(p, cfg, x, positions)
+    q, k, v = _qkv(p, cfg, x, positions, mrope_positions)
     sq = x.shape[1]
     md = mode()
     if md.enabled and window == 0 and sq >= md.min_attn_q:
@@ -131,7 +137,7 @@ def cross_attention(p, cfg: ArchConfig, x, memory, positions) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def decode_attention(p, cfg: ArchConfig, x, k_cache, v_cache, cache_len: int,
-                     *, window: int = 0
+                     *, window: int = 0, mrope_positions=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode: x (b, 1, d); k/v_cache (b, S, hkv, hd) hold
     ``cache_len`` valid entries; the new entry is written at
@@ -139,7 +145,7 @@ def decode_attention(p, cfg: ArchConfig, x, k_cache, v_cache, cache_len: int,
     b = x.shape[0]
     positions = torch.full((b, 1), cache_len, dtype=torch.long,
                            device=x.device)
-    q, k_new, v_new = _qkv(p, cfg, x, positions)
+    q, k_new, v_new = _qkv(p, cfg, x, positions, mrope_positions)
     k_cache[:, cache_len] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, cache_len] = v_new[:, 0].to(v_cache.dtype)
     S = k_cache.shape[1]

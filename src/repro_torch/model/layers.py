@@ -1,4 +1,4 @@
-"""Core layers: dtype and device resolution, init, rmsnorm, rope, embed.
+"""Core layers: dtype and device resolution, init, rmsnorm, rope, M-RoPE, embed.
 
 Ports ``src/repro/model/layers.py``.  Conventions are the reference's:
 matmul weights are stored ``(in, out)`` and used as ``x @ W``; norms,
@@ -10,7 +10,7 @@ carry the reference's weights across with :mod:`repro_torch.bridge`).
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -80,7 +80,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# RoPE (half-split, theta 1e6)
+# RoPE (half-split, theta 1e6) and M-RoPE for qwen2-vl
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float = 1e6,
@@ -90,17 +90,38 @@ def rope_freqs(head_dim: int, theta: float = 1e6,
                                          device=device) / half))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 1e6) -> torch.Tensor:
-    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate x's half-split channel pairs by ``angles`` (..., seq, half)
+    in f32 and cast back to x's dtype."""
     half = x.shape[-1] // 2
-    freqs = rope_freqs(x.shape[-1], theta, x.device)              # (half,)
-    angles = positions[..., :, None].float() * freqs              # (..., seq, half)
     cos = torch.cos(angles)[..., :, None, :]
     sin = torch.sin(angles)[..., :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e6) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)              # (half,)
+    return _rotate(x, positions[..., :, None].float() * freqs)    # (..., seq, half)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections: Tuple[int, int, int] = (1, 1, 2),
+                theta: float = 1e6) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: the head_dim/2 rotary channels are split into
+    (t, h, w) sections, each rotated by its own position stream (at head
+    dim 128: 16, 16 and 32 of the 64 channels).  x: (..., seq, heads,
+    head_dim); positions3: (..., seq, 3)."""
+    half = x.shape[-1] // 2
+    bounds = [half * s // sum(sections) for s in sections]
+    p = positions3.float()                                        # (..., seq, 3)
+    # each channel takes its section's position (the reference's jnp.take)
+    chan_pos = torch.cat([p[..., i:i + 1].expand(*p.shape[:-1], n)
+                          for i, n in enumerate(bounds)], dim=-1)  # (..., seq, half)
+    return _rotate(x, chan_pos * rope_freqs(x.shape[-1], theta, x.device))
 
 
 # ---------------------------------------------------------------------------

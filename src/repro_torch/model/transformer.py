@@ -3,7 +3,7 @@ chunked prefill and ragged decode steps.
 
 Ports ``src/repro/model/transformer.py`` (``layer_specs``,
 ``pattern_period``, ``init_params``, ``REMAT``, ``_apply_layer``,
-``_run_stack``, ``_frontend_embeds``, ``forward``, ``lm_loss``,
+``_run_stack``, ``_frontend_embeds``, ``_mrope_positions``, ``forward``, ``lm_loss``,
 ``init_cache``, the cache-slot helpers, ``_stack_walk``, ``chunk_step``,
 ``serve_decode_step``, ``prefill`` and ``decode_step``).  Differences
 from the reference:
@@ -35,8 +35,15 @@ into memory, which each decoder layer's cross attention reads in
 :func:`forward`, :func:`prefill` and :func:`decode_step` (recomputing
 memory's k/v at every decode step, as the reference does).  As in the
 reference, :func:`chunk_step` and :func:`serve_decode_step` have no
-cross branch: the continuous engine serves the decoder alone.  M-RoPE and
-the vision frontend (qwen2-vl) raise ``NotImplementedError``.
+cross branch: the continuous engine serves the decoder alone.
+
+The vlm (qwen2-vl) prepends its vision stub, through ``frontend_proj``,
+to the text in :func:`forward` and :func:`prefill`, and rotates q and k
+with M-RoPE at :func:`_mrope_positions` there and at
+``_mrope_positions(cfg, b, 1) + cache_len`` in :func:`decode_step`.  As
+in the reference, :func:`chunk_step` and :func:`serve_decode_step` pass
+no M-RoPE positions: the continuous engine serves it with plain rope.
+Every arch of the registry runs.
 """
 from __future__ import annotations
 
@@ -130,16 +137,6 @@ def _lcm(a, b):
     return a * b // math.gcd(a, b)
 
 
-def check_supported(cfg: ArchConfig, role: str = "decoder") -> List[LayerSpec]:
-    """The layer specs of ``role``'s stack, or ``NotImplementedError``
-    for what the port does not have yet: M-RoPE and the vision frontend
-    (qwen2-vl)."""
-    if cfg.mrope or (cfg.frontend_stub and cfg.family == "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE and the vision frontend are not ported yet")
-    return layer_specs(cfg, role)
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -168,8 +165,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     """Random weights drawn on ``device`` from ``generator`` (or a new
     one seeded with ``seed``).  Matmul weights are ``(in, out)``.  An
     encoder-decoder also has ``enc_layers``, ``enc_final_ln`` and
-    ``frontend_proj``."""
-    specs = check_supported(cfg)
+    ``frontend_proj``; a vlm ``frontend_proj``."""
+    specs = layer_specs(cfg)
     dev = device_of(device)
     gen = generator if generator is not None else make_generator(seed, dev)
     dtype = dtype_of(cfg.dtype)
@@ -182,7 +179,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
         p["lm_head"] = embed_init(gen, cfg.vocab, cfg.d_model, dtype)
     if cfg.enc_layers:
         p["enc_layers"] = [_init_layer(gen, cfg, spec, dtype)
-                           for spec in check_supported(cfg, "encoder")]
+                           for spec in layer_specs(cfg, "encoder")]
         p["enc_final_ln"] = rmsnorm_init(cfg.d_model, dev)
     if cfg.frontend_stub:
         # learned projection applied to the stub frontend embeddings
@@ -220,7 +217,7 @@ def _cross(p, spec: LayerSpec, cfg: ArchConfig, x, memory, positions):
 # ---------------------------------------------------------------------------
 
 def _apply_layer(p, spec: LayerSpec, cfg: ArchConfig, x, positions,
-                 memory=None, collect: bool = False):
+                 memory=None, mrope_positions=None, collect: bool = False):
     """One layer over the whole sequence: (x, aux, kv).  aux is MoE's f32
     aux loss or None; kv the layer's decode cache with ``collect``, else
     None (an encoder layer has none)."""
@@ -228,7 +225,7 @@ def _apply_layer(p, spec: LayerSpec, cfg: ArchConfig, x, positions,
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == "attn":
         r = ATT.attention(p["mixer"], cfg, h, positions, window=spec.window,
-                          return_kv=collect)
+                          mrope_positions=mrope_positions, return_kv=collect)
         if collect:
             h, (k, v) = r
             kv = {"k": k, "v": v}
@@ -248,19 +245,21 @@ def _apply_layer(p, spec: LayerSpec, cfg: ArchConfig, x, positions,
     return x, aux, kv
 
 
-def _run_stack(layers, cfg: ArchConfig, role: str, x, positions, memory=None):
+def _run_stack(layers, cfg: ArchConfig, role: str, x, positions, memory=None,
+               mrope_positions=None):
     """``role``'s stack (``params["layers"]`` for the decoder,
     ``params["enc_layers"]`` for the encoder) over the whole sequence:
     (x, aux summed over the layers in f32).  Each pattern period's layers
     run as one body under :func:`_maybe_remat`; the tail past the last
     full period runs without, as in the reference."""
-    specs = check_supported(cfg, role)
+    specs = layer_specs(cfg, role)
     period = pattern_period(cfg, role)
     repeats = len(specs) // period
 
     def run(x, aux, lo: int, hi: int):
         for i in range(lo, hi):
-            x, a, _ = _apply_layer(layers[i], specs[i], cfg, x, positions, memory)
+            x, a, _ = _apply_layer(layers[i], specs[i], cfg, x, positions, memory,
+                                   mrope_positions)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -298,10 +297,42 @@ def encode(params, cfg: ArchConfig, enc_frontend: Optional[torch.Tensor]):
     return rmsnorm(memory, params["enc_final_ln"], cfg.norm_eps)
 
 
-def _refuse_frontend(cfg: ArchConfig, frontend: Optional[torch.Tensor]) -> None:
+def _mrope_positions(cfg: ArchConfig, batch: int, seq: int, device=None) -> torch.Tensor:
+    """(b, s, 3) M-RoPE positions: the first ``frontend_len`` rows, the
+    image patches, get (0, h, w) on a ``grid``-wide grid; text row i gets
+    (t, t, t) with t = i − frontend_len + grid (Qwen2-VL scheme).  The
+    grid is host arithmetic on sizes; the positions are built on
+    ``device``."""
+    fl = cfg.frontend_len
+    grid = int(math.sqrt(max(fl, 1)))
+    idx = torch.arange(seq, device=device)
+    in_img = idx < fl
+    zero = torch.zeros_like(idx)
+    h = torch.where(in_img, (idx % max(fl, 1)) // max(grid, 1), zero)
+    w = torch.where(in_img, idx % max(grid, 1), zero)
+    t = torch.where(in_img, zero, idx - fl + grid)
+    pos = torch.stack([t, torch.where(in_img, h, t), torch.where(in_img, w, t)], -1)
+    return pos[None].expand(batch, seq, 3)
+
+
+def _inputs(params, cfg: ArchConfig, tokens: torch.Tensor,
+            frontend: Optional[torch.Tensor], enc_frontend: Optional[torch.Tensor]):
+    """What :func:`forward` and :func:`prefill` run the decoder on: (x,
+    positions, M-RoPE positions or None, encoder memory or None).  A vlm's
+    ``frontend`` (b, frontend_len, d_model) goes through
+    ``frontend_proj`` and is prepended to the text, so the positions
+    count its rows too.  Any other family refuses one, where the
+    reference would drop it."""
+    x = embed(tokens, params["embed"])
     if frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the vision frontend stub is not ported yet")
+        if not (cfg.frontend_stub and cfg.family == "vlm"):
+            raise NotImplementedError(
+                f"{cfg.name} is not a vlm: it reads no vision frontend stub")
+        x = torch.cat([_frontend_embeds(params, cfg, frontend), x], 1)
+    b, seq = x.shape[:2]
+    positions = torch.arange(seq, device=x.device)[None].expand(b, seq)
+    mpos = _mrope_positions(cfg, b, seq, x.device) if cfg.mrope else None
+    return x, positions, mpos, encode(params, cfg, enc_frontend)
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -311,15 +342,10 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     """Full-sequence forward.  tokens: (b, s).  Returns (logits
     (b, s, vocab) in the model dtype, aux loss f32).  For an
     encoder-decoder, ``enc_frontend`` (b, frames, d_model) feeds the
-    encoder.  ``frontend``, the vision stub the reference prepends for a
-    vlm, waits for the vlm (:func:`check_supported`): passing one raises,
-    as the reference ignores it for every other family."""
-    _refuse_frontend(cfg, frontend)
-    x = embed(tokens, params["embed"])
-    b, seq = tokens.shape
-    positions = torch.arange(seq, device=x.device)[None].expand(b, seq)
-    memory = encode(params, cfg, enc_frontend)
-    x, aux = _run_stack(params["layers"], cfg, "decoder", x, positions, memory)
+    encoder.  For a vlm, ``frontend`` (b, frontend_len, d_model) is
+    prepended, and the logits have ``frontend_len + s`` rows."""
+    x, positions, mpos, memory = _inputs(params, cfg, tokens, frontend, enc_frontend)
+    x, aux = _run_stack(params["layers"], cfg, "decoder", x, positions, memory, mpos)
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return unembed(x, _head(params)), aux
 
@@ -327,9 +353,10 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
 def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
             labels: torch.Tensor, frontend: Optional[torch.Tensor] = None,
             enc_frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token cross entropy in f32 plus 0.01 · aux."""
+    """Mean next-token cross entropy in f32 plus 0.01 · aux, over the
+    labels' positions: a vlm's frontend rows predict no token."""
     logits, aux = forward(params, cfg, tokens, frontend, enc_frontend)
-    lf = logits.float()
+    lf = logits[:, -labels.shape[1]:].float()
     logz = torch.logsumexp(lf, dim=-1)
     gold = lf.gather(-1, labels[..., None].long())[..., 0]
     return (logz - gold).mean() + 0.01 * aux
@@ -345,18 +372,13 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
             ) -> Tuple[torch.Tensor, Cache]:
     """Full forward that also materializes the decode cache.
     Returns (last-position logits (b, vocab), per-layer cache of
-    ``seq`` rows).  ``frontend`` and ``enc_frontend`` as in
-    :func:`forward`; the cache holds the decoder's self-attention rows
-    only (:func:`decode_step` takes memory again)."""
-    specs = check_supported(cfg)
-    _refuse_frontend(cfg, frontend)
-    x = embed(tokens, params["embed"])
-    b, seq = tokens.shape
-    positions = torch.arange(seq, device=x.device)[None].expand(b, seq)
-    memory = encode(params, cfg, enc_frontend)
+    ``seq`` rows, a vlm's frontend rows among them).  ``frontend`` and
+    ``enc_frontend`` as in :func:`forward`; the cache holds the decoder's
+    self-attention rows only (:func:`decode_step` takes memory again)."""
+    x, positions, mpos, memory = _inputs(params, cfg, tokens, frontend, enc_frontend)
     cache: Cache = []
-    for p, spec in zip(params["layers"], specs):
-        x, _, kv = _apply_layer(p, spec, cfg, x, positions, memory, collect=True)
+    for p, spec in zip(params["layers"], layer_specs(cfg)):
+        x, _, kv = _apply_layer(p, spec, cfg, x, positions, memory, mpos, collect=True)
         cache.append(kv)
     x = rmsnorm(x[:, -1:, :], params["final_ln"], cfg.norm_eps)
     return unembed(x[:, 0, :], _head(params)), cache
@@ -369,16 +391,22 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: Cache,
     token: (b, 1); returns (logits (b, vocab), cache).  An
     encoder-decoder's cross attention reads ``memory`` (b, frames,
     d_model), its query at position ``cache_len``; memory's k/v are
-    projected again at every step, as in the reference."""
+    projected again at every step, as in the reference.  M-RoPE takes
+    ``_mrope_positions(cfg, b, 1) + cache_len``, (L, L, L) at
+    ``cache_len`` L, as in the reference (a teacher-forced
+    :func:`forward` gives a text row other positions, so the two differ)."""
+    b = token.shape[0]
     cross_pos = None if memory is None else torch.full(
-        (token.shape[0], 1), cache_len, dtype=torch.long, device=token.device)
+        (b, 1), cache_len, dtype=torch.long, device=token.device)
+    mpos = (_mrope_positions(cfg, b, 1, token.device) + cache_len
+            if cfg.mrope else None)
 
     def layer(p, spec, x, lc):
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         if spec.mixer == "attn":
             h, k, v = ATT.decode_attention(p["mixer"], cfg, h, lc["k"],
                                            lc["v"], cache_len,
-                                           window=spec.window)
+                                           window=spec.window, mrope_positions=mpos)
             nc = {"k": k, "v": v}
         else:
             h, conv, ssm_st = SSM.mamba_decode(p["mixer"], cfg, h,
@@ -402,7 +430,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     """Per-layer cache: ``{"k", "v"}`` of shape (batch, max_len, hkv, hd)
     for an attention layer, ``{"conv", "ssm"}`` (:func:`ssm.init_mamba_cache`)
     for a Mamba layer."""
-    specs = check_supported(cfg)
+    specs = layer_specs(cfg)
     dev = device_of(device)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
     dtype = dtype_of(cfg.dtype)
@@ -476,7 +504,7 @@ def zero_cache_slot(cache: Cache, i: int) -> Cache:
 def _stack_walk(params, cfg: ArchConfig, x, cache: Cache, layer_fn):
     """Walk the layers for the serving step functions:
     ``layer_fn(p, spec, x, layer_cache) -> (x, new_layer_cache)``."""
-    specs = check_supported(cfg)
+    specs = layer_specs(cfg)
     new_cache: Cache = []
     for p, spec, lc in zip(params["layers"], specs, cache):
         x, nc = layer_fn(p, spec, x, lc)

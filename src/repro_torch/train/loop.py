@@ -85,11 +85,14 @@ class Trainer:
     def run_step(self, step: int) -> Dict[str, float]:
         batch = {k: torch.from_numpy(v).to(self.device, torch.long)
                  for k, v in self.data.batch(step).items()}
+        # a vlm's vision stub and an encoder's stub frames: zeros, bf16, as
+        # in the reference
+        stub = (self.cfg.global_batch, self.arch.frontend_len, self.arch.d_model)
+        if self.arch.family == "vlm":
+            batch["frontend"] = torch.zeros(stub, dtype=torch.bfloat16, device=self.device)
         if self.arch.enc_layers:
-            # the encoder's stub frames: zeros, bf16, as in the reference
-            batch["enc_frontend"] = torch.zeros(
-                (self.cfg.global_batch, self.arch.frontend_len, self.arch.d_model),
-                dtype=torch.bfloat16, device=self.device)
+            batch["enc_frontend"] = torch.zeros(stub, dtype=torch.bfloat16,
+                                                device=self.device)
         self.params, self.opt_state, metrics = self.step_fn(
             self.params, self.opt_state, batch)
         # one device read per step, as the reference's float() of each metric

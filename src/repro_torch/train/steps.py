@@ -6,10 +6,9 @@ into ``n_micro`` micro-batches, takes each one's gradients with
 ``jax.value_and_grad`` gives them), sums them in f32 and hands the mean
 to AdamW.  The step updates the parameters and optimizer state in place
 and returns the objects it was given.  A batch is ``tokens`` and
-``labels``, and for an encoder-decoder also ``enc_frontend`` (b, frames,
-d_model), split into micro-batches with them (:func:`_batch_kw`).  The
-vlm's ``frontend`` waits for qwen2-vl (``transformer.check_supported``
-refuses it).
+``labels``, and for a vlm also ``frontend`` (b, frontend_len, d_model),
+for an encoder-decoder ``enc_frontend`` (b, frames, d_model), split into
+micro-batches with them (:func:`_batch_kw`).
 """
 from __future__ import annotations
 
@@ -25,7 +24,12 @@ from ..tree import leaves, with_leaves
 
 def _batch_kw(cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """The model inputs of ``batch`` beside the tokens."""
-    return {"enc_frontend": batch["enc_frontend"]} if cfg.enc_layers else {}
+    kw = {}
+    if cfg.family == "vlm":
+        kw["frontend"] = batch["frontend"]
+    if cfg.enc_layers:
+        kw["enc_frontend"] = batch["enc_frontend"]
+    return kw
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, n_micro: int):

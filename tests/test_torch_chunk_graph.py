@@ -11,8 +11,9 @@ tests hold that body on the CPU, where the engine runs it as eager ops:
 * tick by tick against the reference engine's jitted ``_chunk`` /
   ``_mixed`` (caches, lengths, tokens, buffers, positions and the chunk's
   last-row logits at 1e-4 in f32) on granite, falcon-mamba, gemma3 past
-  its window, qwen3-moe, jamba and seamless-m4t (its decoder alone, as
-  both engines serve it) smoke, with the kernel routes (plain
+  its window, qwen3-moe, jamba, seamless-m4t (its decoder alone, as
+  both engines serve it) and qwen2-vl (with plain rope, as both engines
+  serve it) smoke, with the kernel routes (plain
   versions; thresholds lowered to 16 as at ``tests/test_serve.py:157``)
   and without;
 * bit for bit against the int-offset, int-slot path of the same modules;
@@ -79,10 +80,12 @@ ARCHS = {"granite_3_2b": _cfgs("granite_3_2b"),
          "qwen3_moe_30b_a3b": _cfgs("qwen3_moe_30b_a3b"),
          "jamba_v0_1_52b": _cfgs("jamba_v0_1_52b"),
          # the decoder alone: the engines' steps have no cross attention
-         "seamless_m4t_large_v2": _cfgs("seamless_m4t_large_v2")}
+         "seamless_m4t_large_v2": _cfgs("seamless_m4t_large_v2"),
+         # plain rope: the engines' steps pass no M-RoPE positions
+         "qwen2_vl_7b": _cfgs("qwen2_vl_7b")}
 
 
-@functools.lru_cache(maxsize=6)
+@functools.lru_cache(maxsize=7)
 def weights(arch: str):
     jcfg, tcfg = ARCHS[arch]
     jp = JT.init_params(jax.random.PRNGKey(0), jcfg)

@@ -8,11 +8,13 @@ are the reference's ``init_params`` carried across by
 f32; the bf16 section holds AdamW's update and the train step in bf16,
 the dtype the card trains in.
 
-The model checks run at the smoke widths of six archs: granite (dense
+The model checks run at the smoke widths of seven archs: granite (dense
 GQA), gemma3 (sliding window, at a sequence past its smoke window),
 qwen3_0_6b (qk-norm, tied embeddings), falcon-mamba (Mamba), jamba
-(attention/Mamba interleave with experts) and qwen3-moe (experts on
-every layer).  Tolerances: logits 1e-4 and aux 1e-5 absolute; the loss
+(attention/Mamba interleave with experts), qwen3-moe (experts on every
+layer) and qwen2-vl (M-RoPE; the forward check on text alone, whose
+first rows sit on the image grid, the loss, gradients and train steps
+with the vision stub).  Tolerances: logits 1e-4 and aux 1e-5 absolute; the loss
 1e-5 relative; each gradient leaf within 1e-4 of its largest reference
 entry (summation order differs between XLA and torch, and the
 reference's Mamba scan is associative where the port's is sequential).
@@ -42,7 +44,7 @@ from repro_torch.tree import leaves, map_tree, with_leaves
 torch.set_num_threads(1)
 
 ARCHS = ("granite_3_2b", "gemma3_4b", "qwen3_0_6b", "falcon_mamba_7b",
-         "jamba_v0_1_52b", "qwen3_moe_30b_a3b")
+         "jamba_v0_1_52b", "qwen3_moe_30b_a3b", "qwen2_vl_7b")
 LOGIT_TOL = dict(rtol=0, atol=1e-4)
 AUX_TOL = dict(rtol=0, atol=1e-5)
 BATCH, SEQ = 2, 24          # gemma3's smoke window is 16
@@ -70,15 +72,17 @@ def batch(cfg, seed=0, b=BATCH, s=SEQ):
     return toks[:, :-1], toks[:, 1:]
 
 
-def enc_inputs(cfg, seed, b):
-    """An encoder-decoder's stub frames (b, frontend_len, d_model) in the
-    model's dtype, for each package: ``{}`` for any other arch."""
-    if not cfg.enc_layers:
+def stub_inputs(cfg, seed, b):
+    """A vlm's vision stub (``frontend``) or an encoder-decoder's stub
+    frames (``enc_frontend``), (b, frontend_len, d_model) in the model's
+    dtype, for each package: ``{}`` for any other arch."""
+    name = "frontend" if cfg.family == "vlm" else "enc_frontend" if cfg.enc_layers else None
+    if name is None:
         return {}, {}
     x = np.random.RandomState(100 + seed).standard_normal(
         (b, cfg.frontend_len, cfg.d_model)).astype(np.float32)
-    return ({"enc_frontend": jnp.asarray(x, cfg.dtype)},
-            {"enc_frontend": torch.from_numpy(x).to(getattr(torch, cfg.dtype))})
+    return ({name: jnp.asarray(x, cfg.dtype)},
+            {name: torch.from_numpy(x).to(getattr(torch, cfg.dtype))})
 
 
 def close(t: torch.Tensor, j, tol):
@@ -115,8 +119,8 @@ def jax_loss_and_grads(arch, seed=0):
     jcfg, _, jp, _ = setup(arch)
     tok, lab = batch(jcfg, seed)
     fn = jax.jit(jax.value_and_grad(
-        lambda p, t, y: JT.lm_loss(p, jcfg, t, y)))
-    return fn(jp, jnp.asarray(tok), jnp.asarray(lab))
+        lambda p, t, y, kw: JT.lm_loss(p, jcfg, t, y, **kw)))
+    return fn(jp, jnp.asarray(tok), jnp.asarray(lab), stub_inputs(jcfg, seed, BATCH)[0])
 
 
 def port_loss_and_grads(arch, seed=0):
@@ -124,7 +128,7 @@ def port_loss_and_grads(arch, seed=0):
     params = port_params(arch)
     tok, lab = batch(tcfg, seed)
     loss = TT.lm_loss(params, tcfg, torch.from_numpy(tok).long(),
-                      torch.from_numpy(lab).long())
+                      torch.from_numpy(lab).long(), **stub_inputs(tcfg, seed, BATCH)[1])
     grads = torch.autograd.grad(loss, leaves(params))
     return loss.detach(), with_leaves(params, list(grads))
 
@@ -278,7 +282,7 @@ def jax_train_run(arch, n_micro, steps=3, dtype="float32"):
         tok, lab = batch(jcfg, seed=10 + s, b=4)
         jp, state, m = step(jp, state, {"tokens": jnp.asarray(tok),
                                         "labels": jnp.asarray(lab),
-                                        **enc_inputs(jcfg, s, 4)[0]})
+                                        **stub_inputs(jcfg, s, 4)[0]})
         out.append((float(m["loss"]), float(m["grad_norm"]), float(m["lr"])))
         if first is None:
             first = jax.tree.map(np.asarray, jp)
@@ -300,7 +304,7 @@ def test_train_steps_track_reference(arch, n_micro):
         tok, lab = batch(tcfg, seed=10 + s, b=4)
         params2, state2, m = step(params, state, {
             "tokens": torch.from_numpy(tok).long(),
-            "labels": torch.from_numpy(lab).long()})
+            "labels": torch.from_numpy(lab).long(), **stub_inputs(tcfg, s, 4)[1]})
         assert params2 is params and state2 is state
         assert rel(float(m["loss"]), jloss) <= 1e-4, (s, float(m["loss"]), jloss)
         assert rel(float(m["grad_norm"]), jnorm) <= 1e-4, (s, float(m["grad_norm"]), jnorm)
@@ -413,7 +417,7 @@ def test_train_steps_bf16_track_reference(arch, n_micro):
         tok, lab = batch(tcfg, seed=10 + s, b=4)
         _, _, m = step(params, state, {"tokens": torch.from_numpy(tok).long(),
                                        "labels": torch.from_numpy(lab).long(),
-                                       **enc_inputs(tcfg, s, 4)[1]})
+                                       **stub_inputs(tcfg, s, 4)[1]})
         assert rel(float(m["loss"]), jloss) <= 1e-3, (s, float(m["loss"]), jloss)
         assert rel(float(m["grad_norm"]), jnorm) <= 2e-2, (s, float(m["grad_norm"]), jnorm)
         assert rel(float(m["lr"]), jlr) <= 1e-6
