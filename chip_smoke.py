@@ -5,6 +5,21 @@
 
 Phases, each of which exits nonzero on failure:
 
+0. plans — every kernel plan the later phases make, through the port's
+   PolyTOPS scheduler (``repro_torch.core``: SCoP, exact ILP schedule
+   through the degradation ladder, schedule tree, Hopper lowering) against
+   a fresh schedule-cache directory under ``build/``, once cold and once
+   from the cache's disk tier: the matmul, flash and scan cases below, the
+   kernel bench's shapes and each served model's traffic
+   (``launch.serve.kernel_plan_shapes`` at chunk rows 44-4096).  Every
+   plan is printed (order, vector iterator, tile, bands, ``degraded``) and
+   must have its operator's order and vector iterator, no degradation,
+   and the tile in ``PLAN_TILES``, the tiles the kernels were planned
+   with before the scheduler was in the loop, so every later launch is as
+   it was.  The host seconds per planner, cold and disk-warm, are printed
+   beside the card's name and power limit.  Each serve phase warms its
+   traffic's plans again (``warm_kernel_plans``) before its timed runs
+   and prints that time apart from the serve walls;
 1. build — compile ``src/repro_torch/csrc/*.cu`` for ``sm_90a``, and
    print the matmul and flash kernels' registers and spills
    (``-Xptxas -v``);
@@ -161,6 +176,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -208,6 +224,7 @@ SERVE_PLENS = (1024, 300, 768, 256, 900, 512, 640, 1000)
 SERVE_GEN = 32
 SERVE_CHUNK = 256
 SERVE_SLOTS = 4
+SERVE_MAX_LEN = max(SERVE_PLENS) + SERVE_GEN + 32
 
 
 class SmokeFailure(Exception):
@@ -350,6 +367,57 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict) -> floa
 # phases
 # ---------------------------------------------------------------------------
 
+def phase_plans(gpu: str) -> dict:
+    """Plan every shape the later phases launch (:func:`plan_cases`)
+    through the port's PolyTOPS scheduler, against a fresh schedule-cache
+    directory under ``build/``: once cold, then again from the disk tier
+    (memory tier and plan memos cleared).  Each plan must have its tile
+    in :data:`PLAN_TILES`, its operator's loop order and vector iterator
+    (:data:`PLAN_ORDERS`) and no degradation.  Prints every plan and the
+    host seconds per planner, cold and disk-warm; returns them."""
+    from repro_torch import plan as P
+    from repro_torch.core import akg, schedcache
+
+    cache_dir = os.path.join(ROOT, "build", "chip_smoke_sched")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    os.environ["POLYTOPS_TORCH_CACHE_DIR"] = cache_dir
+    require(schedcache.global_cache().dir == cache_dir,
+            f"the schedule cache is not at {cache_dir}")
+    planners = {name: getattr(P, f"plan_{name}") for name in PLAN_ORDERS}
+    cases = plan_cases()
+    print(f"[plans] {len(cases)} plans through the port's scheduler (cache {cache_dir})")
+    seconds = {}
+    for run in ("cold", "disk-warm"):
+        if run == "disk-warm":
+            schedcache.global_cache().clear()
+            for fn in planners.values():
+                fn.cache_clear()
+        times = dict.fromkeys(planners, 0.0)
+        for name, args in cases:
+            t0 = time.perf_counter()
+            plan = planners[name](*args)
+            times[name] += time.perf_counter() - t0
+            if run == "cold":
+                print(f"  {name}{args}: order {'>'.join(plan.loop_order)}, vec "
+                      f"{plan.vector_iter}, tile {plan.tile}, bands {plan.bands}, "
+                      f"degraded {plan.degraded}")
+            require(not plan.degraded, f"plan_{name}{args} degraded: {plan.degrade_reasons}")
+            require((plan.loop_order, plan.vector_iter) == PLAN_ORDERS[name],
+                    f"plan_{name}{args}: order {plan.loop_order}, vec {plan.vector_iter}, "
+                    f"expected {PLAN_ORDERS[name]}")
+            require(plan.tile == PLAN_TILES[name, args],
+                    f"plan_{name}{args}: tile {plan.tile}, frozen {PLAN_TILES[name, args]}")
+        seconds[run] = times
+        counts = {name: sum(n == name for n, _ in cases) for name in planners}
+        print(f"  {run}: " + ", ".join(f"{name} {times[name]:.3f} s ({counts[name]} plans)"
+                                       for name in planners)
+              + f"; total {sum(times.values()):.3f} s (host seconds; card: {gpu})")
+    stats = schedcache.global_cache().stats.as_dict()
+    print(f"  every tile equal to the frozen table, no plan degraded; schedule cache "
+          f"{stats}, plan memos {akg.plan_memo_stats()}")
+    return seconds
+
+
 def phase_build() -> float:
     """Build the library; meanwhile compile ``matmul.cu`` and
     ``flash_attention.cu`` once more with ``-Xptxas -v`` (one nvcc each,
@@ -487,6 +555,186 @@ FLASH_CASES = [(1, 256, 1024, 768, *GRANITE_HEADS), (1, 256, 768, 512, *GRANITE_
                (1, 128, 640, 512, *QWEN2VL_HEADS), (1, 132, 1024, 768, *QWEN2VL_HEADS),
                (1, 232, 1024, 768, *QWEN2VL_HEADS), (1, 768, 768, 0, *QWEN2VL_HEADS)]
 FLASH_CACHE_LEN = 1600
+# (b, s, d_inner, state) of the scan kernels' checks
+SCAN_CASES = ((1, SERVE_CHUNK, 8192, 16), (1, 44, 8192, 16), (1, 64, 128, 8))
+
+# the plans phase: every served model's traffic is planned at these chunk
+# rows (its ragged chunks, a full one, and the prefills' 512, 768 and
+# 4096 rows), each planner must give its operator's order and vector
+# iterator, and each plan the tile in PLAN_TILES, the tiles the port's
+# kernels were planned with before the scheduler was in the loop
+PLAN_ROWS = (44, 128, 132, 232, 256, 512, 768, 4096)
+PLAN_ORDERS = {"matmul": (("i", "kk", "j"), "j"), "attention": (("q", "kk", "d"), "d"),
+               "mamba_scan": (("t", "d", "n"), "n"), "scan_gate": (("d", "t", "n"), "n")}
+SERVED_ARCHS = ("granite_3_2b", "falcon_mamba_7b", "gemma3_4b", "qwen3_moe_30b_a3b",
+                "seamless_m4t_large_v2", "qwen2_vl_7b")
+
+
+def plan_cases() -> list:
+    """``(planner, args)`` of every plan the later phases make: the
+    matmul cases (K and N padded to 8, as the wrapper pads them), the
+    flash cases' (rows, kv rows, head dim), the scan cases (and the
+    scan+gate's half chunk), the kernel bench's shapes, and each served
+    model's plans (``launch.serve.kernel_plan_shapes`` at PLAN_ROWS)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import kernel_plan_shapes
+
+    cases = {("matmul", (m, -(-n // 8) * 8, -(-k // 8) * 8)) for m, k, n in MM_CASES}
+    cases |= {("attention", (c, kv, d)) for _, c, kv, _, _, _, d in FLASH_CASES}
+    for _, s, di, st in SCAN_CASES:
+        cases |= {("mamba_scan", (s, di, st)), ("scan_gate", (s, di, st))}
+    cases.add(("scan_gate", (SERVE_CHUNK // 2, 8192, 16)))
+    # repro_torch.kernels.bench: its smoke and its timings
+    cases |= {("matmul", (n, n, n)) for n in (128, 256, 512)}
+    cases |= {("attention", (s, s, 64)) for s in (128, 512)}
+    cases |= {("mamba_scan", (128, 256, 16)), ("scan_gate", (128, 256, 16))}
+    for arch in SERVED_ARCHS:
+        cases.update(kernel_plan_shapes(get_arch(arch), SERVE_MAX_LEN, SERVE_CHUNK,
+                                        PLAN_ROWS))
+    return sorted(cases)
+
+
+# (planner, args) -> tile, for every plan_cases() entry
+PLAN_TILES = {
+    ('attention', (44, 384, 64)): {'q': 32, 'kk': 128, 'd': 64},
+    ('attention', (44, 384, 128)): {'q': 32, 'kk': 128, 'd': 128},
+    ('attention', (44, 384, 256)): {'q': 32, 'kk': 128, 'd': 256},
+    ('attention', (44, 1088, 64)): {'q': 32, 'kk': 128, 'd': 64},
+    ('attention', (44, 1088, 128)): {'q': 32, 'kk': 128, 'd': 128},
+    ('attention', (44, 1088, 256)): {'q': 32, 'kk': 128, 'd': 256},
+    ('attention', (100, 1000, 64)): {'q': 64, 'kk': 128, 'd': 64},
+    ('attention', (128, 128, 64)): {'q': 128, 'kk': 128, 'd': 64},
+    ('attention', (128, 640, 64)): {'q': 128, 'kk': 128, 'd': 64},
+    ('attention', (128, 640, 128)): {'q': 128, 'kk': 128, 'd': 128},
+    ('attention', (128, 640, 256)): {'q': 128, 'kk': 128, 'd': 256},
+    ('attention', (128, 1088, 64)): {'q': 128, 'kk': 128, 'd': 64},
+    ('attention', (128, 1088, 128)): {'q': 128, 'kk': 128, 'd': 128},
+    ('attention', (128, 1088, 256)): {'q': 128, 'kk': 128, 'd': 256},
+    ('attention', (132, 1024, 64)): {'q': 128, 'kk': 128, 'd': 64},
+    ('attention', (132, 1024, 128)): {'q': 128, 'kk': 128, 'd': 128},
+    ('attention', (132, 1024, 256)): {'q': 128, 'kk': 128, 'd': 256},
+    ('attention', (132, 1088, 64)): {'q': 128, 'kk': 128, 'd': 64},
+    ('attention', (132, 1088, 128)): {'q': 128, 'kk': 128, 'd': 128},
+    ('attention', (132, 1088, 256)): {'q': 128, 'kk': 128, 'd': 256},
+    ('attention', (232, 1024, 64)): {'q': 128, 'kk': 128, 'd': 64},
+    ('attention', (232, 1024, 128)): {'q': 128, 'kk': 128, 'd': 128},
+    ('attention', (232, 1024, 256)): {'q': 128, 'kk': 128, 'd': 256},
+    ('attention', (232, 1088, 64)): {'q': 128, 'kk': 128, 'd': 64},
+    ('attention', (232, 1088, 128)): {'q': 128, 'kk': 128, 'd': 128},
+    ('attention', (232, 1088, 256)): {'q': 128, 'kk': 128, 'd': 256},
+    ('attention', (256, 256, 64)): {'q': 128, 'kk': 128, 'd': 64},
+    ('attention', (256, 768, 64)): {'q': 128, 'kk': 128, 'd': 64},
+    ('attention', (256, 768, 256)): {'q': 128, 'kk': 128, 'd': 256},
+    ('attention', (256, 1024, 64)): {'q': 128, 'kk': 128, 'd': 64},
+    ('attention', (256, 1024, 128)): {'q': 128, 'kk': 128, 'd': 128},
+    ('attention', (256, 1024, 256)): {'q': 128, 'kk': 128, 'd': 256},
+    ('attention', (256, 1088, 64)): {'q': 128, 'kk': 128, 'd': 64},
+    ('attention', (256, 1088, 128)): {'q': 128, 'kk': 128, 'd': 128},
+    ('attention', (256, 1088, 256)): {'q': 128, 'kk': 128, 'd': 256},
+    ('attention', (256, 1536, 256)): {'q': 128, 'kk': 128, 'd': 256},
+    ('attention', (512, 512, 64)): {'q': 128, 'kk': 128, 'd': 64},
+    ('attention', (512, 1088, 64)): {'q': 128, 'kk': 128, 'd': 64},
+    ('attention', (512, 1088, 128)): {'q': 128, 'kk': 128, 'd': 128},
+    ('attention', (512, 1088, 256)): {'q': 128, 'kk': 128, 'd': 256},
+    ('attention', (768, 768, 128)): {'q': 128, 'kk': 128, 'd': 128},
+    ('attention', (768, 1088, 64)): {'q': 128, 'kk': 128, 'd': 64},
+    ('attention', (768, 1088, 128)): {'q': 128, 'kk': 128, 'd': 128},
+    ('attention', (768, 1088, 256)): {'q': 128, 'kk': 128, 'd': 256},
+    ('attention', (1088, 1088, 64)): {'q': 128, 'kk': 128, 'd': 64},
+    ('attention', (1088, 1088, 128)): {'q': 128, 'kk': 128, 'd': 128},
+    ('attention', (1088, 1088, 256)): {'q': 128, 'kk': 128, 'd': 256},
+    ('attention', (4096, 1088, 64)): {'q': 128, 'kk': 128, 'd': 64},
+    ('attention', (4096, 1088, 128)): {'q': 128, 'kk': 128, 'd': 128},
+    ('attention', (4096, 1088, 256)): {'q': 128, 'kk': 128, 'd': 256},
+    ('mamba_scan', (44, 8192, 16)): {'t': 44, 'd': 32, 'n': 16},
+    ('mamba_scan', (64, 128, 8)): {'t': 64, 'd': 64, 'n': 8},
+    ('mamba_scan', (128, 256, 16)): {'t': 128, 'd': 32, 'n': 16},
+    ('mamba_scan', (256, 8192, 16)): {'t': 128, 'd': 32, 'n': 16},
+    ('matmul', (37, 56, 72)): {'i': 64, 'kk': 64, 'j': 128},
+    ('matmul', (44, 1024, 8192)): {'i': 64, 'kk': 64, 'j': 128},
+    ('matmul', (44, 2048, 8192)): {'i': 64, 'kk': 64, 'j': 128},
+    ('matmul', (44, 2560, 10240)): {'i': 64, 'kk': 64, 'j': 128},
+    ('matmul', (44, 3584, 18944)): {'i': 64, 'kk': 64, 'j': 128},
+    ('matmul', (44, 8192, 1024)): {'i': 64, 'kk': 64, 'j': 128},
+    ('matmul', (44, 8192, 2048)): {'i': 64, 'kk': 64, 'j': 128},
+    ('matmul', (44, 10240, 2560)): {'i': 64, 'kk': 64, 'j': 128},
+    ('matmul', (44, 18944, 3584)): {'i': 64, 'kk': 64, 'j': 128},
+    ('matmul', (128, 128, 128)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (128, 1024, 8192)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (128, 2048, 8192)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (128, 2560, 10240)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (128, 3584, 18944)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (128, 8192, 1024)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (128, 8192, 2048)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (128, 10240, 2560)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (128, 18944, 3584)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (132, 1024, 8192)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (132, 2048, 8192)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (132, 2560, 10240)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (132, 3584, 18944)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (132, 8192, 1024)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (132, 8192, 2048)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (132, 10240, 2560)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (132, 18944, 3584)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (200, 8192, 2048)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (232, 1024, 8192)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (232, 2048, 8192)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (232, 2560, 10240)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (232, 3584, 18944)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (232, 8192, 1024)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (232, 8192, 2048)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (232, 10240, 2560)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (232, 18944, 3584)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (256, 256, 256)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (256, 1024, 8192)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (256, 2048, 8160)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (256, 2048, 8192)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (256, 2560, 10240)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (256, 3584, 18944)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (256, 8192, 1024)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (256, 8192, 2048)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (256, 10240, 2560)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (256, 18944, 3584)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (512, 512, 512)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (512, 1024, 8192)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (512, 2048, 8192)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (512, 2560, 10240)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (512, 3584, 18944)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (512, 8192, 1024)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (512, 8192, 2048)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (512, 10240, 2560)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (512, 18944, 3584)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (768, 1024, 8192)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (768, 2048, 8192)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (768, 2560, 10240)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (768, 3584, 18944)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (768, 8192, 1024)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (768, 8192, 2048)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (768, 10240, 2560)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (768, 18944, 3584)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (1024, 8192, 1024)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (2048, 8192, 2048)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (2560, 10240, 2560)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (3584, 18944, 3584)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (4096, 1024, 8192)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (4096, 2048, 8192)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (4096, 2560, 10240)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (4096, 3584, 18944)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (4096, 8192, 1024)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (4096, 8192, 2048)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (4096, 10240, 2560)): {'i': 128, 'kk': 64, 'j': 128},
+    ('matmul', (4096, 18944, 3584)): {'i': 128, 'kk': 64, 'j': 128},
+    ('scan_gate', (44, 8192, 16)): {'t': 44, 'd': 32, 'n': 16},
+    ('scan_gate', (64, 128, 8)): {'t': 64, 'd': 64, 'n': 8},
+    ('scan_gate', (128, 256, 16)): {'t': 128, 'd': 32, 'n': 16},
+    ('scan_gate', (128, 8192, 16)): {'t': 128, 'd': 32, 'n': 16},
+    ('scan_gate', (132, 8192, 16)): {'t': 128, 'd': 32, 'n': 16},
+    ('scan_gate', (232, 8192, 16)): {'t': 128, 'd': 32, 'n': 16},
+    ('scan_gate', (256, 8192, 16)): {'t': 128, 'd': 32, 'n': 16},
+    ('scan_gate', (512, 8192, 16)): {'t': 128, 'd': 32, 'n': 16},
+    ('scan_gate', (768, 8192, 16)): {'t': 128, 'd': 32, 'n': 16},
+    ('scan_gate', (4096, 8192, 16)): {'t': 128, 'd': 32, 'n': 16},
+}
 
 
 def sweep_matmul_geometry(gen: torch.Generator) -> None:
@@ -794,7 +1042,7 @@ def phase_selective_scan(gen: torch.Generator) -> dict:
     print("[kernels] selective_scan (csrc/scan_gate.cu) vs ref.selective_scan_ref")
     worst = 0.0
     rec = None
-    for shape in ((1, SERVE_CHUNK, 8192, 16), (1, 44, 8192, 16), (1, 64, 128, 8)):
+    for shape in SCAN_CASES:
         ops = ssm_operands(gen, *shape, torch.float32)
         abc = {k: ops[k] for k in ("a_bar", "b_bar", "c")}
         got = msc.selective_scan(**abc)
@@ -887,13 +1135,22 @@ def phase_serve(gpu: str, arch: str, path_kernels, relative_logits: bool = False
     LOGIT_VS_F32); ``check_offsets``: the chunks whose logits
     ``check_chunk_step`` compares."""
     from repro_torch.configs.registry import get_arch
-    from repro_torch.launch.serve import ContinuousEngine
+    from repro_torch.launch.serve import ContinuousEngine, warm_kernel_plans
     from repro_torch.model import transformer as T
     from repro_torch.model.layers import make_generator
     from repro_torch.tree import leaves
 
     cfg = get_arch(arch)
-    max_len = max(SERVE_PLENS) + SERVE_GEN + 32
+    max_len = SERVE_MAX_LEN
+    # the traffic's plans, before any timed run: its first eager tick and
+    # its first capture of each key then plan nothing
+    t0 = time.perf_counter()
+    plans = warm_kernel_plans(cfg, max_len, SERVE_CHUNK,
+                              rows=[n % SERVE_CHUNK for n in SERVE_PLENS])
+    print(f"[serve] {cfg.name}: {len(plans)} kernel plans of its traffic warmed in "
+          f"{time.perf_counter() - t0:.3f} s (host), none degraded: "
+          f"{not any(p.degraded for p in plans)}")
+    require(not any(p.degraded for p in plans), f"{cfg.name}: a kernel plan degraded")
     carried = collect_previous_phase()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1860,6 +2117,7 @@ def main() -> int:
     gpu = gpu_line()
     print(f"card: {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     try:
+        phase_plans(gpu)
         phase_build()
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)

@@ -8,9 +8,10 @@ reference's smoke shapes (matmul 128³; causal flash attention over
 (1, 128, 2, 64); the selective scan and the fused scan + skip + gate over
 (1, 64, 128, 8), the latter whole and in two halves carried through
 ``h0``) and must agree with its oracle, or the exit status is 1.  Beside
-each kernel stands its plan from :mod:`repro_torch.plan`, in the
-reference's ``plan_*`` lines: loop order and vector iterator are the
-reference scheduler's, the tiles are fitted to the card.
+each kernel stands its plan from the port's PolyTOPS scheduler (through
+:mod:`repro_torch.plan`), in the reference's ``plan_*`` lines with the
+schedule's bands beside them: loop order, vector iterator and bands are
+the scheduler's, the tiles are fitted to the card.
 
 The smoke inputs are drawn from numpy under a seed (:func:`smoke_inputs`).  On
 ``cuda`` (the default; it raises without a card) the wrappers launch the
@@ -79,7 +80,8 @@ def smoke_inputs() -> Dict[str, np.ndarray]:
 
 
 def _plan_line(name: str, plan) -> str:
-    return f"{name},{'>'.join(plan.loop_order)},vec={plan.vector_iter} tiles={plan.tile}"
+    return (f"{name},{'>'.join(plan.loop_order)},vec={plan.vector_iter} tiles={plan.tile} "
+            f"bands={plan.bands}")
 
 
 def smoke(out=None, device="cuda", oracles: Optional[Dict[str, Callable]] = None) -> int:

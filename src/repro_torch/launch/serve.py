@@ -626,16 +626,47 @@ def check_flash_head_dim(cfg, device: torch.device, chunk: int, min_attn_q: int)
                          f"without --kernels, or on the CPU")
 
 
-def warm_kernel_plans(cfg, max_len: int, chunk: int = 16) -> None:
+def kernel_plan_shapes(cfg, max_len: int, chunk: int = 16, rows=()) -> list:
+    """``(planner, args)`` of every kernel plan serving ``cfg`` makes:
+    the reference's warm set (the MLP at ``d_model`` rows, attention over
+    the whole cache and the chunk over it, the fused scan at the chunk)
+    and, for every chunk row count in ``chunk`` and ``rows`` (the ragged
+    chunks the traffic sends), the MLP's two matmul shapes, the chunk's
+    attention over the cache and its fused scan.  Only the kernels of the
+    model's decoder layers are planned: no matmul without a dense MLP
+    layer, no attention without an attention layer, no scan without a
+    Mamba layer."""
+    rows = sorted({max(chunk, 8), *(r for r in rows if r > 0)})
+    specs = T.layer_specs(cfg)
+    shapes = []
+    if any(spec.ffn == "mlp" for spec in specs):
+        shapes.append(("matmul", (cfg.d_model, cfg.d_ff, cfg.d_model)))
+        for r in rows:
+            shapes += [("matmul", (r, cfg.d_ff, cfg.d_model)),
+                       ("matmul", (r, cfg.d_model, cfg.d_ff))]
+    if any(spec.mixer == "attn" for spec in specs):
+        shapes.append(("attention", (max_len, max_len, cfg.hd)))
+        shapes += [("attention", (r, max_len, cfg.hd)) for r in rows]
+    if any(spec.mixer == "mamba" for spec in specs):
+        shapes += [("scan_gate", (r, cfg.d_inner, cfg.ssm_state)) for r in rows]
+    return shapes
+
+
+PLANNERS = {"matmul": plan_matmul, "attention": plan_attention,
+            "scan_gate": plan_scan_gate}
+
+
+def warm_kernel_plans(cfg, max_len: int, chunk: int = 16, rows=()) -> list:
     """Plan the serving kernels up front (in-process; the port has no
-    schedd client)."""
-    plans = [plan_matmul(cfg.d_model, cfg.d_ff, cfg.d_model),
-             plan_attention(max_len, max_len, cfg.hd),
-             plan_attention(max(chunk, 8), max_len, cfg.hd)]
-    if cfg.d_inner and cfg.ssm_state:
-        plans.append(plan_scan_gate(max(chunk, 8), cfg.d_inner,
-                                    cfg.ssm_state))
-    print(f"serve: {len(plans)} kernel plans warmed in-process")
+    schedd client), at :func:`kernel_plan_shapes`, so no tick of the
+    traffic schedules a kernel.  Returns the plans; counts the degraded
+    ones, as the reference does."""
+    plans = [PLANNERS[name](*args)
+             for name, args in kernel_plan_shapes(cfg, max_len, chunk, rows)]
+    degraded = sum(1 for p in plans if p.degraded)
+    print(f"serve: {len(plans)} kernel plans warmed in-process"
+          + (f", {degraded} degraded" if degraded else ""))
+    return plans
 
 
 def main(argv=None):
@@ -661,7 +692,7 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.smoke()
     max_len = args.prompt_len + args.gen + 1
-    warm_kernel_plans(cfg, max_len, args.chunk)
+    warm_kernel_plans(cfg, max_len, args.chunk, rows=(args.prompt_len % args.chunk,))
     params = T.init_params(cfg, seed=args.seed, device=dev)
     gen = make_generator(args.seed + 1, dev)
     prompts = [torch.randint(2, cfg.vocab, (1, args.prompt_len),

@@ -1,26 +1,16 @@
-"""Kernel plans fitted to Hopper: block geometry for the port's kernels.
+"""The card's side of the kernel plans: constants, shared-memory formulas
+and launch geometry of the kernels in ``csrc/``.
 
-Ports the plan part of ``src/repro/core/akg.py`` (``KernelPlan``,
-``plan_matmul``, ``plan_attention``, ``plan_mamba_scan``,
-``plan_scan_gate``).  The port does not carry the PolyTOPS scheduler
-yet, so loop order and vector iterator are the ones the reference's
-scheduler derives for these SCoPs (tensor-style scheduling puts the
-contiguous iterator innermost):
+The plans themselves come from the port's PolyTOPS scheduler:
+:mod:`repro_torch.core.akg` builds each operator's SCoP, schedules it
+(tensor style, through the degradation ladder and the schedule cache;
+the fused scan+gate ranks its legal schedule bases first), builds the
+schedule tree and lowers it to a :class:`KernelPlan` — loop order and
+vector iterator from the tree, tiles fitted to the card.  This module
+re-exports ``KernelPlan`` and the ``plan_*`` functions, so callers plan
+through it.
 
-* matmul ``C[i,j] += A[i,kk]·B[kk,j]`` → order ``(i, kk, j)``, vector ``j``;
-* attention scores ``S[q,kk] += Q[q,d]·K[kk,d]`` → order ``(q, kk, d)``,
-  vector ``d``;
-* selective scan ``H[d,n] = A[t,d,n]·H[d,n] + B[t,d,n]`` → order
-  ``(t, d, n)``, vector ``n``;
-* fused scan + skip + gate (the same recurrence and an ``O[t,d]``
-  epilogue in one t/d nest; the reference ranks its schedule bases with
-  the autotuner) → order ``(d, t, n)``, vector ``n``.
-
-Tiles start from the reference's initial rule (``akg._fit_tiles``: the
-vector iterator up to 512, the others up to 128) and keep its attention
-clamp (q and kk ≤ 128, ``akg.py:315-318``).  They are then fitted to the
-card and to the kernels in ``csrc/`` instead of to the TPU's VMEM and
-lanes (``akg.py:38-40``):
+What the tiles are fitted to, besides a block's shared memory:
 
 * every edge is a multiple of 16 (bf16 tensor-core fragments are 16 deep);
 * matmul (``csrc/matmul.cu``, TMA and wgmma): ``i`` a multiple of 64 (one
@@ -38,18 +28,19 @@ lanes (``akg.py:38-40``):
   a 128-row K and V slot would leave no room for a second one) and the
   depth of the load ring — is launch geometry:
   :func:`attention_launch_geometry`;
-* the two scans: ``n`` whole (the reference pins it, ``akg.py:344-346``;
-  the state lanes of one channel are neighbouring threads of one warp and
-  reduce by shuffles), ``d`` fills a thread block of ``SCAN_THREADS``
-  threads (one thread per ``h[d, n]``) and ``t`` is the number of time
-  steps whose ``c`` rows the block stages in shared memory at a time
-  (the reference's initial rule, at most 128).
+* the two scans (:func:`scan_tile`): ``n`` whole (the state lanes of one
+  channel are neighbouring threads of one warp and reduce by shuffles),
+  ``d`` fills a thread block of ``SCAN_THREADS`` threads (one thread per
+  ``h[d, n]``) and ``t`` is the number of time steps whose ``c`` rows the
+  block stages in shared memory at a time (at most 128).
 """
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict
+
+from .core.akg import (KernelPlan, plan_attention, plan_mamba_scan,  # noqa: F401
+                       plan_matmul, plan_scan_gate)
 
 SMEM_BYTES = 227 * 1024        # shared memory one block may use on H100
 ACC_BYTES = 64 * 1024          # f32 accumulator tile a block keeps in registers
@@ -73,33 +64,6 @@ ATTN_STAGES = 3                # depth of the K/V load ring
 ATTN_ALIGN = 1024              # the ring's alignment slack (swizzle atom)
 SCAN_THREADS = 512             # threads of a scan block: d tile × state
 WARP = 32
-
-
-@dataclass(frozen=True)
-class KernelPlan:
-    """Loop-nest plan for a kernel (same fields as the reference's)."""
-    loop_order: Tuple[str, ...]       # outer → inner iterator names
-    vector_iter: Optional[str]        # contiguous innermost iterator
-    tile: Dict[str, int] = field(hash=False)
-    bands: Tuple[int, ...]            # band id per scheduled dim
-    schedule_str: str = ""            # human-readable schedule (debug)
-    degraded: bool = False
-    fallback_level: int = 0
-    degrade_reasons: Tuple[str, ...] = ()
-
-
-def _initial_tile(it: str, d: int, vector_iter: str) -> int:
-    """The reference's starting tile (``akg._fit_tiles``)."""
-    if it == vector_iter:
-        t = min(d, 512 if d % 512 == 0 else 128 * max(d // 128, 1))
-        return max(min(t, d), min(d, 128))
-    return min(d, 128)
-
-
-def _snap(t: int, allowed: Tuple[int, ...]) -> int:
-    """Largest allowed size ≤ t, or the smallest allowed one."""
-    fits = [a for a in allowed if a <= t]
-    return max(fits) if fits else min(allowed)
 
 
 def matmul_ring_bytes(tile: Dict[str, int], stages: int = MATMUL_STAGES) -> int:
@@ -126,18 +90,6 @@ def attention_smem_bytes(tile: Dict[str, int],
                          bytes_per_elem: int = 2) -> int:
     q, kk, d = tile["q"], tile["kk"], tile["d"]
     return (q + 2 * kk) * (d + PAD) * bytes_per_elem
-
-
-@functools.lru_cache(maxsize=64)
-def plan_matmul(m: int, n: int, k: int) -> KernelPlan:
-    order = ("i", "kk", "j")
-    dims = {"i": m, "j": n, "kk": k}
-    tile = {it: _initial_tile(it, dims[it], "j") for it in order}
-    tile["i"] = _snap(tile["i"], MATMUL_I)
-    tile["j"] = _snap(tile["j"], MATMUL_J)
-    tile["kk"] = MATMUL_KK
-    return KernelPlan(order, "j", tile, (0, 0, 0),
-                      "S0: [i, kk, j]   # C[i,j] = C[i,j] + A[i,kk] * B[kk,j]")
 
 
 @functools.lru_cache(maxsize=64)
@@ -211,39 +163,11 @@ def attention_launch_geometry(sq: int, sk: int, d: int, b: int, h: int,
             "smem": attention_launch_smem(d, stages)}
 
 
-@functools.lru_cache(maxsize=64)
-def plan_attention(seq_q: int, seq_k: int, head_dim: int) -> KernelPlan:
-    order = ("q", "kk", "d")
-    dims = {"q": seq_q, "kk": seq_k, "d": head_dim}
-    tile = {it: _initial_tile(it, dims[it], "d") for it in order}
-    tile["d"] = head_dim                      # the head stays whole
-    tile["q"] = _snap(min(tile["q"], 128), POW2)
-    tile["kk"] = _snap(min(tile["kk"], 128), POW2)
-    while attention_smem_bytes(tile) > SMEM_BYTES and tile["kk"] > EDGE:
-        tile["kk"] //= 2
-    return KernelPlan(order, "d", tile, (0, 0, 0),
-                      "S0: [q, kk, d]   # S[q,kk] = S[q,kk] + Qm[q,d] * Km[kk,d]")
-
-
-def _scan_tile(seq: int, d_inner: int, state: int) -> Dict[str, int]:
-    """``n`` whole; ``d`` so that d·n threads fill a block (rounded up to
-    whole warps when ``d_inner`` is small; the kernel masks channels past
-    ``d_inner``); ``t`` as the reference starts it, at most 128."""
+def scan_tile(seq: int, d_inner: int, state: int) -> Dict[str, int]:
+    """The scan kernels' tile, their thread block: ``n`` whole; ``d`` so
+    that d·n threads fill a block (rounded up to whole warps when
+    ``d_inner`` is small; the kernel masks channels past ``d_inner``);
+    ``t`` as the reference's tile fit starts it, at most 128."""
     per_warp = max(WARP // state, 1)
     d = min(max(SCAN_THREADS // state, 1), -(-d_inner // per_warp) * per_warp)
     return {"t": max(min(seq, 128), 1), "d": d, "n": state}
-
-
-@functools.lru_cache(maxsize=64)
-def plan_mamba_scan(seq: int, d_inner: int, state: int) -> KernelPlan:
-    tile = _scan_tile(seq, d_inner, state)
-    return KernelPlan(("t", "d", "n"), "n", tile, (0, 0, 0),
-                      "S0: [t, d, n]   # H[d,n] = A[t,d,n] * H[d,n] + B[t,d,n]")
-
-
-@functools.lru_cache(maxsize=64)
-def plan_scan_gate(seq: int, d_inner: int, state: int) -> KernelPlan:
-    tile = _scan_tile(seq, d_inner, state)
-    return KernelPlan(("d", "t", "n"), "n", tile, (0, 0, 0),
-                      "S0: [d, t, n]   # H[d,n] = A[t,d,n] * H[d,n] + B[t,d,n]; "
-                      "O[t,d] = (Y[t,d] + X[t,d] * Dk[d]) * G[t,d]")

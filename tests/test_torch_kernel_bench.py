@@ -4,18 +4,22 @@ Its smoke gate runs every kernel wrapper at the reference bench's smoke
 shapes; on the CPU the wrappers run their plain versions.  Here those are
 held against the reference's jnp oracles (``repro.kernels.ref``) on the
 same numpy inputs at the reference's f32 tolerance of 1e-4, and the plan
-lines against the reference's ``smoke()`` output: the same loop order and
-vector iterator (only the tiles may differ).
+lines against the reference's ``smoke()`` output: the same loop order,
+vector iterator, tile iterators and bands (only the tile sizes may
+differ).
 """
 from __future__ import annotations
 
+import ast
 import io
+import re
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import akg as jakg
 from repro.kernels import bench as jbench
 from repro.kernels import ref as jref
 from repro_torch.kernels import bench
@@ -77,6 +81,19 @@ def test_plans_match_reference_loop_order_and_vector_iterator():
     for w, g in zip(want, got):
         assert g[1] == w[1], (g, w)                                   # loop order
         assert g[2].split()[0] == w[2].split()[0], (g, w)             # vec=<iterator>
+    # the tiles name the reference's iterators; the port's line carries
+    # the scheduler's bands, the reference's at the same smoke shapes
+    want_lines = [ln for ln in ref_out.getvalue().splitlines() if ln.startswith("plan_")]
+    got_lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("plan_")]
+    ref_bands = [jakg.plan_matmul(128, 128, 128).bands, jakg.plan_attention(128, 128, 64).bands,
+                 jakg.plan_mamba_scan(64, 128, 8).bands, jakg.plan_scan_gate(64, 128, 8).bands]
+    for w, g, bands in zip(want_lines, got_lines, ref_bands):
+        assert set(tiles(g)) == set(tiles(w)), (g, w)
+        assert g.endswith(f" bands={bands}"), (g, bands)
+
+
+def tiles(line: str) -> dict:
+    return ast.literal_eval(re.search(r"tiles=(\{[^}]*\})", line).group(1))
 
 
 def test_main_smoke_on_cpu_exits_zero(capsys):

@@ -392,7 +392,7 @@ def test_serve_main_runs_falcon_on_cpu(capsys):
                  "--kernels", "--batch", "2", "--prompt-len", "40", "--gen",
                  "3", "--chunk", "32"])
     out = capsys.readouterr().out
-    assert "4 kernel plans warmed" in out
+    assert "2 kernel plans warmed" in out      # the fused scan at chunk rows 32 and 8
     assert "2 seqs, 6 tokens" in out and "falcon-mamba-7b" in out
 
 
