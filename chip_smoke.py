@@ -20,6 +20,33 @@ Phases, each of which exits nonzero on failure:
    beside the card's name and power limit.  Each serve phase warms its
    traffic's plans again (``warm_kernel_plans``) before its timed runs
    and prints that time apart from the serve walls;
+0a. schedd — the port's scheduling daemon (``python -m
+   repro_torch.launch.schedd``, 4 forked workers) runs as a subprocess
+   for the whole run, on a short socket under /tmp and fresh caches under
+   ``build/chip_smoke_schedd``; it never imports ``torch``, and this
+   process, which holds the card, never forks it.  A client subprocess
+   plans every phase 0 case through it (cold: the daemon's workers
+   compute), then a second one again (warm: the daemon's frames answer,
+   no computation).  Each plan must equal phase 0's (order, vector
+   iterator, tile, bands, schedule string), each client must count all
+   of them answered by the daemon, no fallback and no degraded plan; the
+   clients' host seconds and the daemon's counters and frame bytes are
+   printed.  From here on ``$POLYTOPS_TORCH_SCHEDD_SOCK`` names the
+   daemon, and every serve phase warms its plans through it with the
+   in-process memos cleared first: each must print ``via schedd`` with
+   every plan answered remotely and no fallback;
+0b. autotune — the measured autotuner through the daemon's ``autotune``
+   op at PolyBench SIZE for gemm, gesummv, jacobi1d, jacobi2d, mvt and
+   trmm (``scripts/golden_schedules.py``'s ``AUTOTUNE_KERNELS``): per
+   kernel the winner, its ranker, µs per call and checksum, the µs of
+   the pluto configuration's C build and of the original order, and the
+   failures; every candidate must checksum-match the original order, no
+   result may be degraded, the static winner must equal its golden
+   ``__autotune`` file, a repeated request must be a frame hit and the
+   winner's replay from the daemon's pool ``source == "cache"``, each in
+   under 1 s.  Times are host CPU times (gcc ``-O3 -march=native
+   -fopenmp``), printed with the host's CPU model and the card line; the
+   kernels past a 180 s budget are left out and named;
 1. build — compile ``src/repro_torch/csrc/*.cu`` for ``sm_90a``, and
    print the matmul and flash kernels' registers and spills
    (``-Xptxas -v``);
@@ -374,7 +401,8 @@ def phase_plans(gpu: str) -> dict:
     (memory tier and plan memos cleared).  Each plan must have its tile
     in :data:`PLAN_TILES`, its operator's loop order and vector iterator
     (:data:`PLAN_ORDERS`) and no degradation.  Prints every plan and the
-    host seconds per planner, cold and disk-warm; returns them."""
+    host seconds per planner, cold and disk-warm; returns the plans by
+    ``(planner, args)``."""
     from repro_torch import plan as P
     from repro_torch.core import akg, schedcache
 
@@ -386,7 +414,7 @@ def phase_plans(gpu: str) -> dict:
     planners = {name: getattr(P, f"plan_{name}") for name in PLAN_ORDERS}
     cases = plan_cases()
     print(f"[plans] {len(cases)} plans through the port's scheduler (cache {cache_dir})")
-    seconds = {}
+    seconds, plans = {}, {}
     for run in ("cold", "disk-warm"):
         if run == "disk-warm":
             schedcache.global_cache().clear()
@@ -407,6 +435,7 @@ def phase_plans(gpu: str) -> dict:
                     f"expected {PLAN_ORDERS[name]}")
             require(plan.tile == PLAN_TILES[name, args],
                     f"plan_{name}{args}: tile {plan.tile}, frozen {PLAN_TILES[name, args]}")
+            plans[name, args] = plan
         seconds[run] = times
         counts = {name: sum(n == name for n, _ in cases) for name in planners}
         print(f"  {run}: " + ", ".join(f"{name} {times[name]:.3f} s ({counts[name]} plans)"
@@ -415,7 +444,296 @@ def phase_plans(gpu: str) -> dict:
     stats = schedcache.global_cache().stats.as_dict()
     print(f"  every tile equal to the frozen table, no plan degraded; schedule cache "
           f"{stats}, plan memos {akg.plan_memo_stats()}")
-    return seconds
+    return plans
+
+
+# ---------------------------------------------------------------------------
+# the scheduling daemon: plans and the measured autotuner through it
+# ---------------------------------------------------------------------------
+
+SCHEDD_DIR = os.path.join(ROOT, "build", "chip_smoke_schedd")
+SCHEDD_WORKERS = 4
+#: scripts/golden_schedules.py's AUTOTUNE_KERNELS, at the suite's SIZE
+AUTOTUNE_KERNELS = ("gemm", "gesummv", "jacobi1d", "jacobi2d", "mvt", "trmm")
+AUTOTUNE_BUDGET_S = 180.0
+#: the client subprocess of phase_schedd: plans every case of the JSON
+#: file argv[1] through the daemon named by $POLYTOPS_TORCH_SCHEDD_SOCK
+SCHEDD_CLIENT = r"""
+import json, sys, time
+from repro_torch import plan as P
+from repro_torch.core.schedclient import maybe_client
+cases = json.load(open(sys.argv[1]))
+client = maybe_client()
+assert client is not None, "no daemon configured"
+out, t0 = [], time.perf_counter()
+for name, args in cases:
+    p = getattr(P, "plan_" + name)(*args)
+    out.append([name, args, list(p.loop_order), p.vector_iter, p.tile, list(p.bands),
+                p.schedule_str, p.degraded])
+print(json.dumps({"seconds": time.perf_counter() - t0, "plans": out,
+                  "stats": client.stats.as_dict(),
+                  "torch": "torch" in sys.modules,
+                  "repro": [m for m in sys.modules if m.split(".")[0] == "repro"]}))
+"""
+
+
+def schedd_env(**extra) -> dict:
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), **extra)
+
+
+@contextmanager
+def schedd_daemon():
+    """The port's daemon as a subprocess (never in this process: its
+    worker pool forks, and this process holds the card's context) on a
+    short socket under /tmp, with fresh schedule, frame and compile
+    caches under ``build/``.  Yields the socket path; stops the daemon
+    and its workers on the way out."""
+    import tempfile
+
+    from repro_torch.core.schedclient import (DaemonUnavailable, ProtocolError,
+                                              SchedClient)
+
+    shutil.rmtree(SCHEDD_DIR, ignore_errors=True)
+    os.makedirs(SCHEDD_DIR)
+    sdir = tempfile.mkdtemp(prefix="sd-", dir="/tmp")
+    sock = os.path.join(sdir, "s.sock")
+    log = open(os.path.join(SCHEDD_DIR, "schedd.log"), "w")
+    # the C builds' result cache, the daemon's and this process's
+    os.environ["POLYTOPS_TORCH_CC_CACHE"] = os.path.join(SCHEDD_DIR, "c_builds")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.schedd", "--sock", sock,
+         "--cache-dir", SCHEDD_DIR, "--workers", str(SCHEDD_WORKERS)],
+        env=schedd_env(POLYTOPS_TORCH_CACHE_DIR=SCHEDD_DIR),
+        stdout=log, stderr=subprocess.STDOUT)
+    try:
+        client = SchedClient(sock, retries=0)
+        t0 = time.perf_counter()
+        while True:
+            require(proc.poll() is None, f"the daemon exited with {proc.returncode}")
+            try:
+                client.ping(timeout=1.0)
+                break
+            except (DaemonUnavailable, ProtocolError):
+                require(time.perf_counter() - t0 < 60, "the daemon did not listen in 60 s")
+                time.sleep(0.1)
+        client.close()
+        print(f"[schedd] daemon pid {proc.pid} listening on {sock} after "
+              f"{time.perf_counter() - t0:.3f} s ({SCHEDD_WORKERS} workers, cache {SCHEDD_DIR})")
+        yield sock
+    finally:
+        try:
+            SchedClient(sock, retries=0).shutdown()
+            proc.wait(timeout=30)
+        except Exception:
+            pass
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)
+        log.close()
+        shutil.rmtree(sdir, ignore_errors=True)
+        print(f"[schedd] daemon stopped (exit {proc.returncode})")
+
+
+def daemon_stats(sock: str) -> dict:
+    from repro_torch.core.schedclient import SchedClient
+
+    client = SchedClient(sock, retries=0)
+    try:
+        return client.daemon_stats()
+    finally:
+        client.close()
+
+
+def phase_schedd(gpu: str, sock: str, plans: dict) -> None:
+    """Plan every case of :func:`plan_cases` through the daemon from two
+    client subprocesses in turn: the first cold (the daemon's workers
+    compute), the second warm (its frames answer).  Each plan must equal
+    phase 0's (order, vector iterator, tile, bands, schedule string), and
+    each client must count every plan answered by the daemon, no
+    fallback and no degraded plan; the second client may cause no new
+    computation.  Prints each client's host seconds and the daemon's
+    stats."""
+    cases = plan_cases()
+    path = os.path.join(SCHEDD_DIR, "cases.json")
+    with open(path, "w") as f:
+        json.dump(cases, f)
+    print(f"[schedd] {len(cases)} plans through the daemon from two client processes")
+    for run in ("cold", "warm"):
+        before = daemon_stats(sock)["counters"]
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", SCHEDD_CLIENT, path],
+                             env=schedd_env(POLYTOPS_TORCH_SCHEDD_SOCK=sock,
+                                            POLYTOPS_TORCH_CACHE_DIR=os.path.join(
+                                                SCHEDD_DIR, f"client_{run}")),
+                             capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        require(out.returncode == 0, f"{run} client failed: {out.stderr[-2000:]}")
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        st = daemon_stats(sock)
+        counters = st["counters"]
+        computed = counters["computed"] - before["computed"]
+        frame_hits = counters["frame_hits"] - before["frame_hits"]
+        cs = got["stats"]
+        print(f"  {run} client: {got['seconds']:.3f} s planning ({wall:.3f} s with its "
+              f"start; host seconds; card: {gpu}); remote_ok {cs['remote_ok']}, fallbacks "
+              f"{cs['fallbacks']}, dials {cs['dials']}; daemon computed {computed}, frame "
+              f"hits {frame_hits}; torch imported: {got['torch']}")
+        print(f"  daemon: counters {counters}, pool {st['pool']}, frames "
+              f"{ {k: st['frames'][k] for k in ('entries', 'bytes', 'retained_latency_s')} }")
+        require(cs["remote_ok"] == len(cases) and cs["fallbacks"] == 0,
+                f"{run} client: remote_ok {cs['remote_ok']} of {len(cases)}, fallbacks "
+                f"{cs['fallbacks']}")
+        require(not got["repro"], f"{run} client imported {got['repro']}")
+        if run == "warm":
+            require(computed == 0, f"the warm client caused {computed} computations")
+        for name, args, order, vec, tile, bands, sched_str, degraded in got["plans"]:
+            want = plans[name, tuple(args)]
+            require(not degraded, f"{run}: plan_{name}{tuple(args)} degraded")
+            require((tuple(order), vec, tile, tuple(bands), sched_str)
+                    == (want.loop_order, want.vector_iter, want.tile, want.bands,
+                        want.schedule_str),
+                    f"{run}: plan_{name}{tuple(args)} from the daemon differs from phase 0's")
+    print(f"  every plan equal to phase 0's in both clients, none degraded, no fallback")
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it (model name, vendor, family
+    and model numbers; a sandboxed host may give its name as "unknown"),
+    with the machine's architecture."""
+    import platform
+
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    return (f"{info.get('model name', 'unknown')} ({info.get('vendor_id', '?')} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')}, "
+            f"{platform.machine()})")
+
+
+def phase_autotune(gpu: str, sock: str) -> None:
+    """The measured autotuner through the daemon's ``autotune`` op
+    (``measure=True``) at the suite's SIZE for :data:`AUTOTUNE_KERNELS`,
+    on the daemon's fresh cache.  Per kernel: the winner's label, ranker,
+    µs per call and checksum, the µs of the pluto configuration's C build
+    and of the original order (built and measured here), and the failures
+    list.  Requires no degraded result, no checksum mismatch among the
+    candidates, the winner's and pluto's checksums equal to the original
+    order's, the static winner (``measure=False``) equal to the golden
+    ``__autotune`` file, a repeated request answered by the daemon's
+    frames in under 1 s, and the winner replayed from the daemon's pool
+    (``source == "cache"``) in under 1 s.  Kernels past the budget of
+    AUTOTUNE_BUDGET_S are left out and named.  Times are host CPU times
+    of gcc-built C on the card's host."""
+    from repro_torch.core import crunner
+    from repro_torch.core import scops_polybench as PB
+    from repro_torch.core.autotune import (SPACE_VERSION, TunedConfig, _original_reference,
+                                           autotune, build_source)
+    from repro_torch.core.cachemodel import CacheSpec
+    from repro_torch.core.ilp import SOLVER_TAG
+    from repro_torch.core.schedcache import ScheduleCache
+    from repro_torch.core.schedclient import SchedClient
+    from repro_torch.core.scheduler import schedule_scop
+
+    host = (f"host CPU {host_cpu()}, {os.cpu_count()} cores, gcc "
+            f"{crunner.compiler_version()}; card: {gpu}")
+    print(f"[autotune] {len(AUTOTUNE_KERNELS)} PolyBench kernels at SIZE through the "
+          f"daemon's autotune op, measured (CFLAGS {' '.join(crunner.CFLAGS)}); {host}")
+    client = SchedClient(sock, retries=0, request_timeout=600.0)
+    t_phase = time.perf_counter()
+    done = []
+    for name in AUTOTUNE_KERNELS:
+        if time.perf_counter() - t_phase > AUTOTUNE_BUDGET_S:
+            break
+        t0 = time.perf_counter()
+        r = client.autotune(PB.REGISTRY[name](), measure=True)
+        t_tune = time.perf_counter() - t0
+        require(client.stats.fallbacks == 0, f"{name}: the autotune request fell back")
+        scop = PB.REGISTRY[name]()
+        orig = _original_reference(scop, {sc: 1.0 for sc in scop.scalars}, use_cache=False)
+        pluto_tc = TunedConfig("pluto")
+        pluto = crunner.measure_source(
+            build_source(scop, pluto_tc, schedule_scop(scop, pluto_tc.scheduler_config()),
+                         {sc: 1.0 for sc in scop.scalars}),
+            tag=f"smoke_{name}_pluto", use_cache=False)
+        print(f"  {name} {scop.params}: winner {r.config.label} ({r.source}, ranker "
+              f"{r.ranker}) {r.seconds * 1e6:.1f} us/call, checksum {r.checksum!r}; pluto "
+              f"{pluto.seconds * 1e6:.1f} us/call (checksum {pluto.checksum!r}); original "
+              f"order {orig.seconds * 1e6:.1f} us/call (checksum {orig.checksum!r}); "
+              f"pluto/winner {pluto.seconds / r.seconds:.3f}x; search {t_tune:.3f} s; "
+              f"failures {r.failures}")
+        require(r.source == "measured" and not r.degraded,
+                f"{name}: source {r.source}, degraded {r.degraded}: {r.reasons}")
+        require(not [f for f in r.failures if f["kind"] == "checksum_mismatch"],
+                f"{name}: a candidate's checksum differs from the original order's")
+        for what, res in (("winner", r), ("pluto", pluto)):
+            require(crunner.checksums_match(res.checksum, orig.checksum, 1e-6),
+                    f"{name}: {what} checksum {res.checksum!r}, original {orig.checksum!r}")
+        static = autotune(scop, measure=False, use_cache=False,
+                          cache=ScheduleCache(disk=False), spec=CacheSpec())
+        dump = json.loads(json.dumps({
+            "solver": SOLVER_TAG, "space_version": SPACE_VERSION,
+            "winner": static.to_dict()["config"], "label": static.config.label,
+            "ranker": static.ranker, "ranked": static.ranked[:8]}))
+        golden_path = os.path.join(ROOT, "artifacts", "golden_schedules",
+                                   f"{name}__autotune.json")
+        with open(golden_path) as f:
+            golden = json.load(f)
+        require(dump == golden, f"{name}: static winner {static.config.label} differs "
+                                f"from {golden_path} ({golden['label']})")
+        hits = daemon_stats(sock)["counters"]["frame_hits"]
+        t0 = time.perf_counter()
+        again = client.autotune(PB.REGISTRY[name](), measure=True)
+        t_again = time.perf_counter() - t0
+        require(daemon_stats(sock)["counters"]["frame_hits"] == hits + 1
+                and again.config == r.config and t_again < 1.0,
+                f"{name}: the repeat was no frame hit of the same winner in under 1 s "
+                f"({t_again:.3f} s)")
+        t0 = time.perf_counter()
+        replay = autotune(PB.REGISTRY[name](), measure=True,
+                          cache=ScheduleCache(cache_dir=SCHEDD_DIR))
+        t_replay = time.perf_counter() - t0
+        require(replay.source == "cache" and replay.config == r.config and t_replay < 1.0,
+                f"{name}: the replay from the daemon's pool: source {replay.source}, "
+                f"{t_replay:.3f} s")
+        print(f"    static winner {static.config.label} equal to the golden file; repeat "
+              f"through the daemon {t_again * 1e3:.1f} ms (frame hit), replay from its "
+              f"pool {t_replay * 1e3:.1f} ms (source {replay.source})")
+        done.append(name)
+    client.close()
+    left = [k for k in AUTOTUNE_KERNELS if k not in done]
+    print(f"  {len(done)} kernels tuned in {time.perf_counter() - t_phase:.3f} s (host)"
+          + (f"; left out past the {AUTOTUNE_BUDGET_S:.0f} s budget: {left}" if left else ""))
+    require(done, "no kernel was tuned within the budget")
+
+
+def warm_through_daemon(cfg, max_len: int, rows) -> list:
+    """``warm_kernel_plans`` with the in-process memos and the schedule
+    cache's memory tier cleared first, so every plan asks the daemon
+    (``$POLYTOPS_TORCH_SCHEDD_SOCK``); requires each to come from it."""
+    from repro_torch.core import akg, schedcache
+    from repro_torch.core.schedclient import maybe_client
+    from repro_torch.launch.serve import kernel_plan_shapes, warm_kernel_plans
+
+    for fn in (akg.plan_matmul, akg.plan_attention, akg.plan_mamba_scan,
+               akg.plan_scan_gate):
+        fn.cache_clear()
+    schedcache.global_cache().clear()
+    client = maybe_client()
+    require(client is not None, "no daemon configured for the serve phases")
+    before = client.stats.as_dict()
+    plans = warm_kernel_plans(cfg, max_len, SERVE_CHUNK, rows=rows)
+    st = {k: v - before[k] for k, v in client.stats.as_dict().items()}
+    want = len(set(kernel_plan_shapes(cfg, max_len, SERVE_CHUNK, rows)))
+    require(st["remote_ok"] == want and st["fallbacks"] == 0,
+            f"{cfg.name}: warmed {st['remote_ok']} of {want} plans via schedd, "
+            f"{st['fallbacks']} fallbacks")
+    return plans
 
 
 def phase_build() -> float:
@@ -1135,7 +1453,7 @@ def phase_serve(gpu: str, arch: str, path_kernels, relative_logits: bool = False
     LOGIT_VS_F32); ``check_offsets``: the chunks whose logits
     ``check_chunk_step`` compares."""
     from repro_torch.configs.registry import get_arch
-    from repro_torch.launch.serve import ContinuousEngine, warm_kernel_plans
+    from repro_torch.launch.serve import ContinuousEngine
     from repro_torch.model import transformer as T
     from repro_torch.model.layers import make_generator
     from repro_torch.tree import leaves
@@ -1145,8 +1463,7 @@ def phase_serve(gpu: str, arch: str, path_kernels, relative_logits: bool = False
     # the traffic's plans, before any timed run: its first eager tick and
     # its first capture of each key then plan nothing
     t0 = time.perf_counter()
-    plans = warm_kernel_plans(cfg, max_len, SERVE_CHUNK,
-                              rows=[n % SERVE_CHUNK for n in SERVE_PLENS])
+    plans = warm_through_daemon(cfg, max_len, [n % SERVE_CHUNK for n in SERVE_PLENS])
     print(f"[serve] {cfg.name}: {len(plans)} kernel plans of its traffic warmed in "
           f"{time.perf_counter() - t0:.3f} s (host), none degraded: "
           f"{not any(p.degraded for p in plans)}")
@@ -2117,32 +2434,12 @@ def main() -> int:
     gpu = gpu_line()
     print(f"card: {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     try:
-        phase_plans(gpu)
-        phase_build()
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(0)
-        records = [phase_matmul(gen), phase_flash(gen), phase_scan_gate(gen),
-                   phase_selective_scan(gen)]
-        phase_bench()
-        # each path's counts, read around its own serve run
-        granite = phase_serve(gpu, "granite_3_2b", ("matmul", "flash_attention"))
-        falcon = phase_serve(gpu, "falcon_mamba_7b", ("scan_gate",),
-                             relative_logits=True)
-        gemma3 = phase_serve(gpu, "gemma3_4b", ("matmul", "flash_attention"),
-                             check_offsets=(SERVE_CHUNK, 1280))
-        qwen3_moe = phase_serve(gpu, "qwen3_moe_30b_a3b", ("flash_attention",))
-        encdec = phase_encdec(gpu)
-        seamless = phase_serve(gpu, ENCDEC_ARCH, ("matmul", "flash_attention"))
-        vlm = phase_vlm(gpu)
-        qwen2_vl = phase_serve(gpu, VLM_ARCH, ("matmul", "flash_attention"))
-        phase_train(gpu)
+        # the daemon stops before the last lines are printed
+        with schedd_daemon() as sock:
+            records = run_phases(gpu, sock)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    for rec in records:
-        rec["launches"] = sum(run[rec["name"]] for run in (granite, falcon, gemma3,
-                                                           qwen3_moe, encdec, seamless,
-                                                           vlm, qwen2_vl))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cases")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
@@ -2152,6 +2449,39 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_phases(gpu: str, sock: str) -> list:
+    """Phases 0-9 with the daemon at ``sock``; returns the kernel records
+    with their launches on the main path."""
+    plans = phase_plans(gpu)
+    phase_schedd(gpu, sock, plans)
+    phase_autotune(gpu, sock)
+    # every later plan asks the daemon first
+    os.environ["POLYTOPS_TORCH_SCHEDD_SOCK"] = sock
+    phase_build()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    records = [phase_matmul(gen), phase_flash(gen), phase_scan_gate(gen),
+               phase_selective_scan(gen)]
+    phase_bench()
+    # each path's counts, read around its own serve run
+    granite = phase_serve(gpu, "granite_3_2b", ("matmul", "flash_attention"))
+    falcon = phase_serve(gpu, "falcon_mamba_7b", ("scan_gate",),
+                         relative_logits=True)
+    gemma3 = phase_serve(gpu, "gemma3_4b", ("matmul", "flash_attention"),
+                         check_offsets=(SERVE_CHUNK, 1280))
+    qwen3_moe = phase_serve(gpu, "qwen3_moe_30b_a3b", ("flash_attention",))
+    encdec = phase_encdec(gpu)
+    seamless = phase_serve(gpu, ENCDEC_ARCH, ("matmul", "flash_attention"))
+    vlm = phase_vlm(gpu)
+    qwen2_vl = phase_serve(gpu, VLM_ARCH, ("matmul", "flash_attention"))
+    phase_train(gpu)
+    for rec in records:
+        rec["launches"] = sum(run[rec["name"]] for run in (granite, falcon, gemma3,
+                                                           qwen3_moe, encdec, seamless,
+                                                           vlm, qwen2_vl))
+    return records
 
 
 if __name__ == "__main__":

@@ -13,8 +13,10 @@ Public API:
     sched = schedule_scop(k, config.tensor_style())
     print(sched.pretty())
 
-The schedule tree (repro_torch.core.schedtree) is lowered to the Hopper
-kernels' plans by repro_torch.core.akg.lower_to_kernel_plan.
+Code generation: one schedule-tree IR (repro_torch.core.schedtree) feeds
+every backend — repro_torch.core.codegen (numpy), repro_torch.core.cbackend
+(C, measured by the autotuner through repro_torch.core.crunner), and
+repro_torch.core.akg.lower_to_kernel_plan (the Hopper kernels' plans).
 """
 from . import config
 from .config import (DimConfig, Directive, FusionSpec, SchedulerConfig,

@@ -31,6 +31,12 @@ shapes ``csrc/`` is built for, are applied by each ``plan_*``.
 The card's constants, shared-memory formulas and launch geometry live in
 :mod:`repro_torch.plan`, which re-exports the planners; this module reads
 them at call time.
+
+Each memoized planner first asks a schedd daemon
+(:mod:`repro_torch.launch.schedd`) when ``$POLYTOPS_TORCH_SCHEDD_SOCK``
+or ``$POLYTOPS_TORCH_SCHEDD_ADDR`` names one (:func:`_remote_plan`), so N
+serving processes amortize one scheduler; any remote failure plans
+in-process.
 """
 from __future__ import annotations
 
@@ -192,6 +198,21 @@ def lower_to_kernel_plan(tree: ScheduleTree, stmt_idx: Optional[int] = None,
                       degrade_reasons=tuple(prov["reasons"]) if prov else ())
 
 
+def _remote_plan(kind: str, *args, **kwargs) -> Optional[KernelPlan]:
+    """Route a kernel plan through a running schedd daemon, if any.
+
+    Returns None (plan locally) unless ``POLYTOPS_TORCH_SCHEDD_SOCK`` (or
+    ``POLYTOPS_TORCH_SCHEDD_ADDR``) points at a live daemon — and never
+    from inside the daemon itself or a client's fallback path
+    (:mod:`schedclient` guards both).  Remote failures of any kind also
+    return None: the daemon is an amortizer, never a point of failure
+    for planning."""
+    from .schedclient import maybe_remote_plan
+
+    plan = maybe_remote_plan(kind, *args, **kwargs)
+    return plan if isinstance(plan, KernelPlan) else None
+
+
 #: default in-process memo capacity per planner.  Ragged serving shapes
 #: produce one (seq_q, seq_k, head_dim) triple per distinct chunk×page
 #: geometry, so attention needs more than a handful of entries.
@@ -273,6 +294,9 @@ def plan_matmul(m: int, n: int, k: int) -> KernelPlan:
     bf16): both are pinned in the fit, which sizes ``i``, then ``i``
     snaps to the kernel's 64 or 128 rows (one or two consumer
     warpgroups)."""
+    remote = _remote_plan("matmul", m, n, k)
+    if remote is not None:
+        return remote
     from .. import plan as hw
 
     scop = _matmul_scop(m, n, k)
@@ -303,6 +327,9 @@ def plan_attention(seq_q: int, seq_k: int, head_dim: int) -> KernelPlan:
     output spans it), ``q`` and ``kk`` are powers of two up to 128 (the
     online-softmax state), and ``kk`` halves while one Q, K and V tile
     would not fit a block's shared memory."""
+    remote = _remote_plan("attention", seq_q, seq_k, head_dim)
+    if remote is not None:
+        return remote
     from .. import plan as hw
 
     s = Scop("attn_score", params={"Q": seq_q, "K": seq_k, "D": head_dim})
@@ -332,6 +359,9 @@ def plan_mamba_scan(seq: int, d_inner: int, state: int) -> KernelPlan:
     kernel's tile is its thread block (:func:`repro_torch.plan.scan_tile`):
     the state whole, d so that d·state threads fill the block, t the
     time steps whose c rows are staged at a time."""
+    remote = _remote_plan("mamba_scan", seq, d_inner, state)
+    if remote is not None:
+        return remote
     from .. import plan as hw
 
     s = Scop("mamba_scan", params={"T": seq, "D": d_inner, "S": state})
@@ -372,6 +402,9 @@ def plan_scan_gate(seq: int, d_inner: int, state: int) -> KernelPlan:
     t and d in its grid is taken.  Falls back to the ladder path on any
     autotune failure so planning stays total.  The tile is the scan
     kernel's thread block, as for :func:`plan_mamba_scan`."""
+    remote = _remote_plan("scan_gate", seq, d_inner, state)
+    if remote is not None:
+        return remote
     from .. import plan as hw
 
     scop = _scan_gate_scop(seq, d_inner, state)

@@ -1,56 +1,84 @@
-"""Kernel-specific configuration search, the measurement-free half
-(paper §III-E / §IV-B "kernel-specific").
+"""Kernel-specific autotuning (paper §III-E / §IV-B "kernel-specific").
 
-The paper's headline numbers come from *kernel-specific
+The paper's headline PolyBench numbers come from *kernel-specific
 configurations* — per-kernel choices of cost functions, fusion,
-vectorization and tiling.  This module enumerates that space and ranks
-it statically:
+vectorization and tiling.  This module searches that full §III-E space:
 
 1. **Configuration enumeration** — candidate ``SchedulerConfig``s are
-   composed from the scheduling strategy (``pluto``/``tensor``/
-   ``bigloops``/``feautrier`` — isl-style is excluded: its dynamic
-   Python callback makes schedules uncacheable, see schedcache), the
-   fusion mode (``smart``/``max``/``no`` plus explicit SCC-derived
-   :class:`~repro_torch.core.config.FusionSpec` statement groups) and
-   the per-dimension cost-function mixes
-   (:data:`repro_torch.core.costs.COST_MIXES`), with tile/wavefront
-   variants pruned by schedule structure.  Base schedules come through
-   the structural schedule cache and are **deduplicated** by
-   :func:`repro_torch.core.schedcache.schedule_fingerprint`.
-2. **Static ranking** — the analytic access-stride cost model
-   (:func:`static_cost`).
-3. **Kernel-plan lowering** — :func:`rank_pallas_plans` lowers the
+   composed from four axes:
+
+   * scheduling strategy (``pluto``/``tensor``/``bigloops``/``feautrier``
+     — isl-style is excluded: its dynamic Python callback makes
+     schedules uncacheable, see schedcache);
+   * **fusion**: ``smart``/``max``/``no`` modes plus explicit
+     SCC-derived :class:`~repro_torch.core.config.FusionSpec` statement groups
+     (adjacent SCCs of the dependence graph merged pairwise — points
+     *between* the extremes);
+   * **per-dimension cost-function mixes**
+     (:data:`repro_torch.core.costs.COST_MIXES`): contiguity/proximity stride
+     orderings, big-loops-first outer dims, and a static isl-style
+     require-parallel variant — threaded into the per-dim ILP objective
+     construction by the scheduler;
+   * tile source (none / cache-model L1 / cache-model L2 / fixed 32) ×
+     wavefront × auto-vectorization, pruned by schedule structure.
+
+   Base schedules come through the structural schedule cache and are
+   **deduplicated** by :func:`repro_torch.core.schedcache.schedule_fingerprint`
+   — on a single-SCC kernel the fusion modes all collapse to one
+   candidate instead of three.
+2. **Static ranking** — the analytic access-stride cost model below
+   (:func:`static_cost`), replaced by a *learned* ridge ranker (:mod:`repro_torch.core.ranker`) once
+   enough measured (kernel, config, time) triples have accumulated in
+   the cache pool.  Ranking prunes the enumeration to a measurable
+   ``top_k``.
+3. **Measurement** — the ``top_k`` ranked candidates are compiled and
+   timed through :mod:`repro_torch.core.crunner`; each must checksum-match the
+   original-program-order reference or it is discarded.  Every valid
+   measurement is persisted as a training triple
+   (:func:`repro_torch.core.schedcache.record_measurements`).
+4. **Persistence** — the winner is stored in the schedule-cache pool
+   keyed by SCoP structure + search-space version
+   (:func:`repro_torch.core.schedcache.autotune_key`), so the second compile
+   of the same kernel shape is a dictionary/disk lookup — winner
+   replay, no re-enumeration.
+5. **Kernel-plan lowering** — :func:`rank_pallas_plans` lowers the
    best-ranked schedule trees to
    :class:`~repro_torch.core.akg.KernelPlan`\\ s for the kernels in
    ``csrc/`` (the fused scan+gate planner picks its plan this way).  The
    name is the reference's, whose plans feed Pallas kernels.
 
-The reference package also measures the top candidates as compiled C
-(its ``autotune()``, with a C backend and a learned ranker); that half is
-not part of the port.
+Measured times are host CPU times of gcc-built C
+(:mod:`repro_torch.core.crunner`), as in the reference package; the card
+takes no part in them.
 
-Everything is deterministic: candidate order is fixed and ranking
-tie-breaks on candidate index.
+Everything is deterministic: candidate order is fixed, ranking
+tie-breaks on candidate index, and measurements go through crunner's
+on-disk result cache, so re-tuning the same kernel against the same
+measurement pool returns the same configuration.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+import time
+from dataclasses import asdict, dataclass, field, replace
 from fractions import Fraction
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from . import config as CFG
 from . import costs as C
-from .resilience import Deadline, DeadlineExceeded
+from .resilience import Deadline, DeadlineExceeded, MeasurementError
 from .cachemodel import (CacheSpec, default_spec, shared_bands,
                          shared_groups, shared_scan, shared_tile_sizes,
                          working_set_bytes)
 from .schedtree import (iterator_substitution, level_parallel,
                         schedule_tree, yvar as _yvar)
-from .postproc import find_tilable_bands
-from .schedcache import (ScheduleCache, cached_schedule_scop, global_cache,
-                         schedule_fingerprint)
-from .scheduler import Schedule, _scc_groups
+from .postproc import find_tilable_bands, tile_schedule
+from .schedcache import (ScheduleCache, autotune_key, cached_schedule_scop,
+                         global_cache, load_measurements,
+                         record_measurements, schedule_fingerprint)
+from .scheduler import PolyTOPSScheduler, Schedule, _scc_groups
 from .scop import Scop
+
+SPACE_VERSION = 2          # bump when the candidate space / model changes
 
 #: strategies the autotuner explores (isl-style is excluded: its dynamic
 #: Python callback makes schedules uncacheable — see schedcache)
@@ -101,7 +129,15 @@ class TunedConfig:
         post-processing and share the base schedule)."""
         return replace(self, tile=None, wavefront=False)
 
+    @property
+    def uses_new_axes(self) -> bool:
+        """True when the winning choice exercises the fusion or cost-mix
+        axis (the §III-E space beyond strategy×tile×wavefront)."""
+        return self.fusion != "smart" or self.mix is not None
+
     def scheduler_config(self) -> CFG.SchedulerConfig:
+        if self.strategy == "original":    # untransformed program order
+            return CFG.SchedulerConfig()
         cfg = CFG.STRATEGIES[self.strategy]()
         if self.autovec:
             cfg.auto_vectorize = True
@@ -118,6 +154,51 @@ class TunedConfig:
             }
             cfg.name = f"{cfg.name}+mix{self.mix}"
         return cfg
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TunedConfig":
+        d = dict(d)
+        fg = d.get("fusion_groups")
+        if fg is not None:
+            d["fusion_groups"] = tuple(tuple(int(i) for i in g) for g in fg)
+        return cls(**d)
+
+
+@dataclass
+class TunedResult:
+    config: TunedConfig
+    static_cost: float = 0.0
+    seconds: Optional[float] = None
+    checksum: Optional[float] = None
+    source: str = "static"              # 'static' | 'measured' | 'cache'
+    ranked: List[str] = field(default_factory=list)   # candidate labels, best-first
+    ranker: str = "analytic"            # 'analytic' | 'learned'
+    #: True when the search itself was compromised (deadline truncation,
+    #: reference-measurement failure) — the winner may not be the true
+    #: optimum and is never persisted.  Individual candidate failures
+    #: alone do not degrade the result: the surviving winner is still a
+    #: fully validated measurement.
+    degraded: bool = False
+    reasons: List[str] = field(default_factory=list)
+    #: MeasurementError rows (kind/tag/phase/detail) of every failed
+    #: compile-and-measure attempt, including retries and checksum
+    #: mismatches — the search's failure log, not an error state
+    failures: List[dict] = field(default_factory=list)
+
+    def to_dict(self) -> dict:
+        d = asdict(self)
+        d["config"] = asdict(self.config)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TunedResult":
+        cfg = TunedConfig.from_dict(d["config"])
+        return cls(cfg, d.get("static_cost", 0.0), d.get("seconds"),
+                   d.get("checksum"), "cache", list(d.get("ranked", [])),
+                   d.get("ranker", "analytic"),
+                   bool(d.get("degraded", False)),
+                   list(d.get("reasons", [])),
+                   list(d.get("failures", [])))
 
 
 # ---------------------------------------------------------------------------
@@ -361,6 +442,268 @@ def static_cost(scop: Scop, sched: Schedule, tc: TunedConfig,
     if tc.wavefront:
         total *= _WAVE_PENALTY
     return total
+
+
+# ---------------------------------------------------------------------------
+# source building + measurement
+# ---------------------------------------------------------------------------
+
+
+def build_source(scop: Scop, tc: TunedConfig, sched: Schedule,
+                 scalars: Optional[Dict[str, float]] = None,
+                 repeats: int = 1) -> str:
+    from .cbackend import CCodeGenerator
+
+    scan = (tile_schedule(sched, tc.tile, wavefront=tc.wavefront)
+            if tc.tile is not None else None)
+    return CCodeGenerator(sched, scan=scan, scalars=scalars,
+                          repeats=repeats).generate()
+
+
+def _ref_source(scop: Scop, scalars) -> str:
+    """C source of the untransformed program order — the correctness
+    anchor every measured candidate must checksum-match."""
+    from .cbackend import CCodeGenerator
+
+    sched = PolyTOPSScheduler(scop, CFG.SchedulerConfig())._fallback_original()
+    return CCodeGenerator(sched, scalars=scalars).generate()
+
+
+def _original_reference(scop: Scop, scalars, use_cache: bool):
+    """Measured reference checksum/seconds (no retry policy — callers
+    needing record/retry/exclude go through autotune's loop)."""
+    from .crunner import measure_source
+
+    return measure_source(_ref_source(scop, scalars),
+                          tag=f"tune_{scop.name}_orig", use_cache=use_cache)
+
+
+# ---------------------------------------------------------------------------
+# the tuner
+# ---------------------------------------------------------------------------
+
+
+#: backoff before the single retry of a failed measurement — long
+#: enough to ride out a transient (a scheduler blip, an injected
+#: one-shot fault), short enough not to dominate the search
+RETRY_BACKOFF_S = 0.05
+
+
+def autotune(scop: Scop, *, scalars: Optional[Dict[str, float]] = None,
+             measure: bool = True, top_k: int = 8,
+             cache: Optional[ScheduleCache] = None, use_cache: bool = True,
+             spec: Optional[CacheSpec] = None,
+             checksum_rel: float = 1e-6,
+             deadline: Optional[Deadline] = None) -> TunedResult:
+    """Pick a kernel-specific configuration for ``scop``.
+
+    With ``measure=True`` the ``top_k`` statically-ranked candidates are
+    compiled and timed (crunner's result cache makes repeats free); with
+    ``measure=False`` the static ranking alone decides.  Winners persist
+    in the schedule-cache pool — the second call for the same kernel
+    shape returns the tuned config without scheduling or compiling
+    anything (``result.source == 'cache'``).
+
+    Failure policy: a candidate whose compile-and-measure attempt dies
+    with a typed :class:`~repro_torch.core.resilience.MeasurementError`
+    (source blowup, gcc timeout/failure, crashing or hanging binary,
+    parse error) is recorded in ``result.failures``, retried once after
+    a short backoff, then excluded; checksum mismatches are recorded
+    the same way and excluded without retry (a wrong answer is
+    deterministic, not transient).  The search never raises for a
+    candidate failure — it returns the best *surviving* measured
+    candidate, or the analytic winner when nothing could be measured.
+    A ``deadline`` is checked at every enumeration and candidate
+    boundary; a breach truncates the search with best-so-far and marks
+    the result ``degraded`` (degraded winners are never persisted).
+    """
+    spec = spec or default_spec()
+    cache = cache or global_cache()
+    scalars = {k: v for k, v in (scalars or {}).items() if k in scop.scalars}
+    for sc in scop.scalars:
+        scalars.setdefault(sc, 1.0)     # match the oracle's default
+    from .crunner import CFLAGS, compiler_version
+
+    space_desc = {
+        "version": SPACE_VERSION,
+        "strategies": list(TUNE_STRATEGIES),
+        "fusion": list(FUSION_STRATEGIES),
+        "mixes": sorted(C.COST_MIXES),
+        "measure": bool(measure),
+        "top_k": int(top_k),
+        "analytic_guard": max(3, int(top_k) // 2),
+        "measure_bases": True,
+        "l1": spec.l1_bytes, "l2": spec.l2_bytes,
+        "elem": spec.elem_bytes,
+        "scalars": sorted(scalars.items()),
+        "checksum_rel": checksum_rel,
+        # winners were measured under a specific toolchain: a compiler
+        # upgrade or flag change invalidates them, same as crunner's
+        # result cache
+        "cflags": list(CFLAGS),
+        "gcc": compiler_version(),
+    }
+    key = autotune_key(scop, space_desc) if use_cache else None
+    hit = cache.get(key)
+    if isinstance(hit, dict) and "config" in hit:
+        # winner replay: no enumeration, no scheduling, no compilation
+        return TunedResult.from_dict(hit)
+
+    # use_cache=False must mean *no* caching anywhere: candidate
+    # schedules go through a throwaway in-memory cache, not the shared
+    # pool (else POLYTOPS_NO_CACHE runs would serve stale schedules)
+    sched_cache = cache if use_cache else ScheduleCache(disk=False)
+    reasons: List[str] = []
+    failures: List[dict] = []
+    scheds = _schedules_for_space(scop, sched_cache, deadline=deadline,
+                                  reasons=reasons)
+    cands = candidate_space(scop, scheds)
+    if not cands:
+        return TunedResult(TunedConfig("pluto"), source="static",
+                           degraded=bool(reasons), reasons=reasons)
+    trips = {s.index: _stmt_trip(scop, s) for s in scop.statements}
+    memo: dict = {}
+
+    # the learned ranker replaces the analytic ordering once the pool
+    # holds enough measured triples of the current search space; the
+    # analytic cost stays as a feature (and as the fallback)
+    from . import ranker as RK
+    model = RK.fit_ranker(load_measurements(cache, SPACE_VERSION)
+                          if use_cache else [])
+    feats_by_label: Dict[str, List[float]] = {}
+    scored: List[Tuple[float, int, TunedConfig, float]] = []
+    for i, tc in enumerate(cands):
+        sched = scheds[tc.base]
+        cost = static_cost(scop, sched, tc, spec, trips, memo)
+        feats = RK.features(scop, sched, tc, cost, spec, trips, memo)
+        feats_by_label[tc.label] = feats
+        score = model.predict(feats) if model is not None else cost
+        scored.append((score, i, tc, cost))
+    scored.sort(key=lambda t: (t[0], t[1]))
+    ranked_labels = [tc.label for _, _, tc, _ in scored]
+    ranker_name = "learned" if model is not None else "analytic"
+
+    # measured set: the primary ranking's top_k, plus the analytic
+    # prior's top picks whenever the learned model decided the order —
+    # a cold-start guard: a ridge model fitted on a few kernels can
+    # misrank an unseen kernel and silently drop the true winner from
+    # the measured set, which the prior's picks cap at a bounded cost
+    measured_set: List[Tuple[float, int, TunedConfig, float]] = list(scored[:top_k])
+    have = {t[2] for t in measured_set}
+    if model is not None:
+        by_analytic = sorted(scored, key=lambda t: (t[3], t[1]))
+        for t in by_analytic[:max(3, top_k // 2)]:
+            if t[2] not in have:
+                measured_set.append(t)
+                have.add(t[2])
+    # every structurally distinct *base* schedule is measured at least
+    # once: the strategy/fusion/mix axes change the loop structure, which
+    # is exactly where both rankers are least reliable, and the base
+    # count is already fingerprint-deduplicated and small.  Ranking
+    # prunes only the tile/wavefront fan-out.
+    for t in scored:
+        if t[2].tile is None and not t[2].wavefront and t[2] not in have:
+            measured_set.append(t)
+            have.add(t[2])
+
+    best: Optional[TunedResult] = None
+    ref = None
+    if measure:
+        from .crunner import checksums_match, measure_source
+
+        def _measure_once(make_src, tag: str):
+            """One compile-and-measure attempt with the shared failure
+            policy: a typed MeasurementError is recorded and retried
+            once after a backoff; a second failure (or any untyped
+            codegen exception) excludes the candidate (returns None)."""
+            for attempt in (1, 2):
+                try:
+                    return measure_source(make_src(), tag=tag,
+                                          use_cache=use_cache)
+                except MeasurementError as e:
+                    failures.append(dict(e.row(), attempt=attempt))
+                    if attempt == 1:
+                        time.sleep(RETRY_BACKOFF_S)
+                except (KeyboardInterrupt, SystemExit):
+                    raise
+                except Exception as e:   # untyped codegen defect: exclude,
+                    failures.append({    # no retry (it is deterministic)
+                        "kind": "codegen_error", "tag": tag,
+                        "phase": "codegen",
+                        "detail": f"{type(e).__name__}: {e}"[:200],
+                        "attempt": attempt})
+                    return None
+            return None
+
+        ref = _measure_once(
+            lambda: _ref_source(scop, scalars),
+            f"tune_{scop.name}_orig")
+        if ref is None:
+            reasons.append("reference measurement failed twice: "
+                           "no checksum oracle, falling back to static "
+                           "ranking")
+        triples: List[dict] = []
+        for _, _, tc, cost in (measured_set if ref is not None else []):
+            if deadline is not None and deadline.expired():
+                reasons.append(
+                    f"measurement truncated at {tc.label!r}: deadline "
+                    f"({deadline.elapsed():.3f}s > {deadline.budget_s:.3f}s)")
+                break
+            sched = scheds[tc.base]
+            r = _measure_once(
+                lambda tc=tc, sched=sched:
+                    build_source(scop, tc, sched, scalars),
+                f"tune_{scop.name}_{tc.label}")
+            if r is None:
+                continue                 # recorded + retried above: exclude
+            if not checksums_match(r.checksum, ref.checksum, checksum_rel):
+                # wrong answer: deterministic, so no retry — record the
+                # mismatch as a typed failure row and discard
+                failures.append(MeasurementError(
+                    "checksum_mismatch", tag=f"tune_{scop.name}_{tc.label}",
+                    phase="validate",
+                    detail=f"got {r.checksum!r}, want {ref.checksum!r}"
+                ).row())
+                continue
+            triples.append({
+                "kernel": scop.name, "label": tc.label,
+                "feats": feats_by_label[tc.label], "seconds": r.seconds,
+                "v": SPACE_VERSION, "fv": RK.FEATURE_VERSION,
+            })
+            if best is None or r.seconds < best.seconds:
+                best = TunedResult(tc, cost, r.seconds, r.checksum,
+                                   "measured", ranked_labels, ranker_name)
+        if use_cache:
+            record_measurements(cache, triples)
+        if best is None and ref is not None:
+            # every measured candidate was rejected (compile failure or
+            # wrong checksum): return the original program order — the
+            # reference we just measured and know is correct — and do
+            # NOT persist; caching a config we just saw fail (or never
+            # validated) would poison every future compile of this
+            # kernel shape
+            return TunedResult(TunedConfig("original"), seconds=ref.seconds,
+                               checksum=ref.checksum, source="measured",
+                               ranked=ranked_labels, ranker=ranker_name,
+                               degraded=bool(reasons), reasons=reasons,
+                               failures=failures)
+    if best is None:
+        _, _, tc, cost = scored[0]
+        best = TunedResult(tc, cost, source="static", ranked=ranked_labels,
+                           ranker=ranker_name)
+    best.degraded = bool(reasons)
+    best.reasons = reasons
+    best.failures = failures
+    if measure and best.source == "measured" and not best.degraded \
+            and key is not None:
+        # only clean *measured* winners persist: a static winner can
+        # depend on the learned ranker's pool state, which the
+        # pool-independent autotune_key cannot encode, and a degraded
+        # winner reflects a truncated search — replaying either would
+        # serve a stale or unlucky answer to every future compile of
+        # this kernel shape
+        cache.put(key, best.to_dict())
+    return best
 
 
 # ---------------------------------------------------------------------------

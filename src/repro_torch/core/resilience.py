@@ -1,8 +1,8 @@
 """Pipeline-wide failure model: fault injection, deadlines, degradation.
 
 Scheduling-as-a-service means a schedule request must *never* crash the
-caller: a corrupt cache file, a deadline or an ILP blowup has to
-degrade the answer, not abort the process.  This module is
+caller: a corrupt cache file, a gcc OOM, a subprocess timeout or an ILP
+blowup has to degrade the answer, not abort the process.  This module is
 the shared vocabulary for that:
 
 * **Fault-injection registry** — named sites (:data:`FAULT_SITES`)
@@ -12,7 +12,7 @@ the shared vocabulary for that:
   :meth:`FaultRegistry.arm` / :func:`inject`.
 
 * **Wall-clock deadlines** — a :class:`Deadline` is threaded through
-  the scheduler's dimension loop and the autotuner's enumeration and
+  the scheduler's dimension loop and the autotuner's candidate loop and
   checked at band/SCC/candidate boundaries; a breach raises
   :class:`DeadlineExceeded`, which the degradation ladder turns into
   the best answer computable in the time that was granted.
@@ -37,8 +37,10 @@ the shared vocabulary for that:
   is recorded on the returned ``Schedule`` and surfaced through
   ``schedcache`` payloads and ``akg`` kernel plans.
 
-* **Typed errors** — :class:`InjectedFault` marks registry-injected
-  failures.
+* **Typed errors** — :class:`MeasurementError` carries the kind / tag /
+  phase of a failed compile-and-measure attempt so the autotuner can
+  record, retry once and exclude instead of aborting the search;
+  :class:`InjectedFault` marks registry-injected failures.
 
 Everything here is deterministic: armed faults fire on exact call
 counts (or on a seeded per-arm RNG when armed probabilistically), so
@@ -59,8 +61,12 @@ FAULT_SITES = (
     "ilp.solve",        # per-dimension lexmin (scheduler, both pipelines)
     "farkas.project",   # Farkas multiplier elimination (farkas.py)
     "fm.bounds",        # Fourier–Motzkin bound chains (polyhedron.bounds_of)
-    "cache.read",       # schedcache pickle reads
-    "cache.write",      # schedcache pickle writes
+    "cache.read",       # schedcache pickle / crunner result-cache reads
+    "cache.write",      # schedcache pickle / crunner / measurements writes
+    "cc.compile",       # gcc invocation (crunner)
+    "cc.run",           # compiled-binary execution (crunner)
+    "measure",          # the measurement policy entry (crunner)
+    "pool.dispatch",    # schedd worker-pool job dispatch (launch/schedd)
 )
 
 #: the four-rung degradation ladder, best → worst
@@ -90,6 +96,32 @@ class DeadlineExceeded(ResilienceError):
         self.stage = stage
         self.budget_s = budget_s
         self.elapsed_s = elapsed_s
+
+
+class MeasurementError(ResilienceError):
+    """A compile-and-measure attempt failed in a *known* way.
+
+    ``kind`` is one of: ``source_blowup`` | ``compile_timeout`` |
+    ``compile_failed`` | ``run_timeout`` | ``run_failed`` | ``parse`` |
+    ``checksum_mismatch`` | ``injected``.  ``tag`` is the crunner build
+    tag (candidate label), ``phase`` the pipeline phase that died
+    (``codegen``/``compile``/``run``/``parse``/``measure``).
+    """
+
+    def __init__(self, kind: str, tag: str = "", phase: str = "",
+                 detail: str = ""):
+        super().__init__(
+            f"measurement failed [{kind}] tag={tag or '?'} "
+            f"phase={phase or '?'}" + (f": {detail}" if detail else ""))
+        self.kind = kind
+        self.tag = tag
+        self.phase = phase
+        self.detail = detail
+
+    def row(self) -> Dict[str, str]:
+        """Plain-dict rendering for failure logs / result provenance."""
+        return {"kind": self.kind, "tag": self.tag, "phase": self.phase,
+                "detail": self.detail[:200]}
 
 
 # ---------------------------------------------------------------------------

@@ -657,14 +657,28 @@ PLANNERS = {"matmul": plan_matmul, "attention": plan_attention,
 
 
 def warm_kernel_plans(cfg, max_len: int, chunk: int = 16, rows=()) -> list:
-    """Plan the serving kernels up front (in-process; the port has no
-    schedd client), at :func:`kernel_plan_shapes`, so no tick of the
-    traffic schedules a kernel.  Returns the plans; counts the degraded
-    ones, as the reference does."""
+    """Plan the serving kernels up front, at :func:`kernel_plan_shapes`,
+    so no tick of the traffic schedules a kernel: through a schedd daemon
+    when ``$POLYTOPS_TORCH_SCHEDD_SOCK`` names one (so N serving processes
+    amortize one scheduler) and in-process otherwise — ``akg``'s remote
+    hook makes the same call total either way.  Prints the daemon
+    client's ``remote_ok`` and ``fallbacks`` of this call (a plan already
+    in the process's memo asks nobody) and the degraded plans; returns
+    the plans."""
+    from ..core.schedclient import maybe_client
+
+    client = maybe_client()
+    before = client.stats.as_dict() if client is not None else None
     plans = [PLANNERS[name](*args)
              for name, args in kernel_plan_shapes(cfg, max_len, chunk, rows)]
     degraded = sum(1 for p in plans if p.degraded)
-    print(f"serve: {len(plans)} kernel plans warmed in-process"
+    if client is not None:
+        st = {k: v - before[k] for k, v in client.stats.as_dict().items()}
+        via = (f"via schedd ({client.sock_path}, "
+               f"remote_ok={st['remote_ok']} fallbacks={st['fallbacks']})")
+    else:
+        via = "in-process"
+    print(f"serve: {len(plans)} kernel plans warmed {via}"
           + (f", {degraded} degraded" if degraded else ""))
     return plans
 
