@@ -181,7 +181,27 @@ Phases, each of which exits nonzero on failure:
    third step, at full width and 2 layers, against three steps without
    the interruption: loss and gradient norm within 1e-6, and whether
    they and every parameter are bit-identical.  No kernel launch count
-   may move in this phase.
+   may move in this phase;
+10. distributed — the port's distributed half (``model.sharding``,
+   ``launch.mesh``, ``launch.dryrun``, ``launch.roofline``), after
+   phase 9: (a) granite's full-width bf16 train step (phase 9's batch 8 x
+   seq 256, ``REMAT="full"``) for 4 steps unsharded, then from the same
+   weights on a one-rank NCCL group's 1x1 ("data", "model") mesh with
+   parameters, AdamW state and batch as DTensors placed by
+   ``param_pspecs`` and ``batch_pspec``: losses and gradient norms within
+   phase 9's tolerances (and whether they are bit-identical), both
+   steps' walls (DTensor's host cost) and peak memory; the group is
+   destroyed in a ``finally``.  A one-rank mesh runs no collective across
+   ranks, so this checks placements and dispatch, not collectives;
+   (b) the dry-run CLI (``python -m repro_torch.launch.dryrun``) for
+   qwen3_0_6b decode_32k on both meshes and granite_3_2b train_4k on the
+   16x16 mesh, run as subprocesses on fake process groups of 256 and 512
+   ranks from the start of phase 1 on (one host core each; they need no
+   card): each cell must be ``ok`` with 256 or 512 devices, and its bytes
+   per device, per-device FLOPs and bytes, collective bytes and
+   bottleneck are printed; (c) ``roofline.model_flops`` of the (a) step
+   against the FLOPs the step ran (``dryrun.DeviceCounter``), the
+   reference's ``model_flops_frac``.  No kernel launches in this phase.
 
 The chunk-step check carries the cache each chunk returns into the next
 (each Mamba state copied, so no view of a whole chunk's f32 states stays
@@ -218,9 +238,11 @@ import torch.nn.functional as F  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-PEAK_BF16 = 989e12      # H100 SXM dense bf16 FLOP/s (data sheet)
-PEAK_F32 = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
-PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s (data sheet)
+# the H100's data-sheet peaks and the bounds built on them (fails without
+# the repository's src/)
+from repro_torch.launch.roofline import (HBM_BW as PEAK_BYTES, PEAK_BF16,  # noqa: E402
+                                         PEAK_F32, bound_ms, work_bound)
+
 MM_TOL = dict(atol=1e-2, rtol=1e-2)      # f32 accumulation in both; bf16 output rounding
 FA_TOL = dict(atol=2e-2, rtol=2e-2)      # the kernel rounds P to bf16 for P·V
 # The scans run in f32 in both versions; they differ in the fused
@@ -268,11 +290,6 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
-
-
-def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 _L2_FLUSH = None
@@ -1851,9 +1868,11 @@ def routed(replay=None):
 
 
 def pick_flips(a, b, e: int) -> int:
-    """(token, k) picks in layer list ``a`` that ``b`` does not make."""
-    return sum(int((F.one_hot(x, e).sum(1) > F.one_hot(y, e).sum(1)).sum())
-               for x, y in zip(a, b))
+    """(token, k) picks in layer list ``a`` that ``b`` does not make (each
+    entry the (..., k) expert ids of one MoE call)."""
+    def per_token(ids):
+        return F.one_hot(ids.reshape(-1, ids.shape[-1]), e).sum(1)
+    return sum(int((per_token(x) > per_token(y)).sum()) for x, y in zip(a, b))
 
 
 def compare_logits(what: str, kern, plain, f32, relative: bool) -> None:
@@ -1933,14 +1952,6 @@ def model_work(cfg, frames: int, seq: int, kv: int, stub: int = 0):
     dec_bytes = 2 * (cfg.n_layers * (layer_w + cross_w + frames * d + 2 * kv * hkv)
                      + d * cfg.vocab + cfg.vocab + (d * d + stub * d if stub else 0))
     return enc, (dec_bf16, dec_f32, dec_bytes)
-
-
-def work_bound(work) -> float:
-    """The least time in ms for (bf16 FLOPs, f32 FLOPs, bytes): the
-    larger of the bytes over the memory rate and the operations, each
-    type over its own peak (the two types run one after the other)."""
-    bf16, f32, nbytes = work
-    return max(nbytes / PEAK_BYTES, bf16 / PEAK_BF16 + f32 / PEAK_F32) * 1e3
 
 
 def phase_encdec(gpu: str) -> dict:
@@ -2422,6 +2433,215 @@ def train_restore() -> None:
     require(ok, "the restored run's third step differs from the uninterrupted one")
 
 
+DIST_STEPS = 4
+# phase 10 (b): the port's dry-run CLI on these cells (arch, shape, flags)
+DRYRUN_CELLS = (("qwen3_0_6b", "decode_32k", ()),
+                ("granite_3_2b", "train_4k", ("--single-pod-only",)))
+DRYRUN_DIR = os.path.join(ROOT, "artifacts", "dryrun_torch")
+DRYRUN_TIMEOUT_S = 900
+
+
+@contextmanager
+def dryrun_cli():
+    """Phase 10 (b)'s dry runs: the port's CLI (``python -m
+    repro_torch.launch.dryrun``) as subprocesses, one per row of
+    ``DRYRUN_CELLS``, started when the card phases begin (they run on
+    fake process groups, on one host core each, and need no card) and
+    read in phase 10.  Yields their (arch, shape, flags, process, log
+    path); stops any still running on the way out."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    runs = []
+    try:
+        for arch, shape, flags in DRYRUN_CELLS:
+            path = os.path.join(ROOT, "build", f"chip_smoke_dryrun_{arch}__{shape}.log")
+            with open(path, "w") as log:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                     "--shape", shape, *flags], cwd=ROOT, stdout=log,
+                    stderr=subprocess.STDOUT, env=schedd_env(OMP_NUM_THREADS="1"))
+            runs.append((arch, shape, flags, proc, path))
+        yield runs
+    finally:
+        for *_, proc, _ in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+
+
+def phase_dist(gpu: str, dryruns) -> None:
+    """Phase 10 (see the module docstring)."""
+    print(f"[dist] {collect_previous_phase()}")
+    mods = kernel_modules()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    step_flops = dist_step(gpu)
+    dist_dryrun(dryruns)
+    dist_roofline(step_flops, gpu)
+    launches = {name: mod.LAUNCHES for name, mod in mods.items()}
+    require(all(n == 0 for n in launches.values()),
+            f"a kernel was launched in the distributed phase: {launches}")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def dist_step(gpu: str) -> float:
+    """(a) Granite's full-width bf16 train step (phase 9's batch, sequence
+    and remat) on a one-rank NCCL group's 1×1 mesh, parameters, AdamW
+    state and batch DTensors placed by ``param_pspecs`` and
+    ``batch_pspec``, against the unsharded step from the same weights and
+    batches.  Returns the per-device FLOPs of one sharded step
+    (``dryrun.DeviceCounter``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.dryrun import DeviceCounter
+    from repro_torch.model import sharding as S
+    from repro_torch.model import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = get_arch("granite_3_2b")
+    T.REMAT = "full"
+    opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0))
+    batches = [{k: torch.from_numpy(v).to("cuda", torch.long)
+                for k, v in data.batch(s).items()} for s in range(DIST_STEPS)]
+
+    def run(mesh):
+        """DIST_STEPS steps from seed-0 weights, then one more under the
+        per-device counter: (walls, metrics, peak GiB, FLOPs)."""
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(cfg, seed=0, device="cuda")
+        place = lambda b: b  # noqa: E731
+        if mesh is not None:
+            params = M.distribute(params, M.param_pspecs(params, cfg, mesh), mesh)
+            rows = S.spec_to_placements(M.batch_pspec(mesh, TRAIN_BATCH),
+                                        mesh.mesh_dim_names)
+            place = lambda b: {k: distribute_tensor(v, mesh, rows)  # noqa: E731
+                               for k, v in b.items()}
+        for t in leaves(params):
+            t.requires_grad_(True)
+        state, step = adamw.init(params), make_train_step(cfg, opt, 1)
+        walls, metrics = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, m = step(params, state, place(b))
+            metrics.append({k: float(v) for k, v in m.items()})     # reads the card
+            walls.append(time.perf_counter() - t0)
+        with DeviceCounter() as cnt:
+            step(params, state, place(batches[0]))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del params, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return walls, metrics, peak, cnt.flops
+
+    t0 = time.perf_counter()
+    plain = run(None)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        S.set_logical_rules(mesh, M.logical_rules(cfg, mesh, batch=TRAIN_BATCH))
+        S.set_param_handlers(*M.make_param_handlers(cfg, mesh))
+        S.set_moe_groups(M.axis_size(mesh, M.dp_axes(mesh)))
+        sharded = run(mesh)
+    finally:
+        S.clear_logical_rules()
+        S.clear_param_handlers()
+        dist.destroy_process_group()
+    (w0, m0, peak0, _), (w1, m1, peak1, flops) = plain, sharded
+    errs = [(_rel(b["loss"], a["loss"]), _rel(b["grad_norm"], a["grad_norm"]))
+            for a, b in zip(m0, m1)]
+    ok = errs[0][0] <= 1e-4 and all(e[1] <= 1e-3 for e in errs) \
+        and all(e[0] <= 1e-3 for e in errs[1:])
+    bits = [a == b for a, b in zip(m0, m1)]
+    print(f"[dist] (a) {cfg.name} at full width, bf16, batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}, REMAT={T.REMAT}, {DIST_STEPS} train steps unsharded and on a "
+          f"one-rank NCCL group's 1x1 (data, model) mesh from the same weights "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for i, (a, b) in enumerate(zip(m0, m1)):
+        print(f"  step {i + 1}: loss {a['loss']!r} vs {b['loss']!r} (rel {errs[i][0]:.1e}), "
+              f"grad_norm {a['grad_norm']!r} vs {b['grad_norm']!r} (rel {errs[i][1]:.1e}); "
+              f"bit-identical {bits[i]}")
+    print(f"  tolerances as phase 9's (loss 1e-4 at step 1, 1e-3 after; grad norm "
+          f"1e-3): {'PASS' if ok else 'FAIL'}; all steps bit-identical {all(bits)}")
+    print(f"  step wall, median of steps 2-{DIST_STEPS}: unsharded "
+          f"{statistics.median(w0[1:]) * 1e3:.1f} ms, DTensor "
+          f"{statistics.median(w1[1:]) * 1e3:.1f} ms (DTensor's host cost: "
+          f"{statistics.median(w1[1:]) / statistics.median(w0[1:]):.2f}x); first steps "
+          f"{w0[0] * 1e3:.1f} / {w1[0] * 1e3:.1f} ms; peak device memory {peak0:.2f} / "
+          f"{peak1:.2f} GiB; card: {gpu}")
+    print("  a one-rank mesh runs no collective across ranks: this checks the "
+          "placements and DTensor's dispatch on the card, not the collectives "
+          "(tests/test_torch_dist.py holds those on four gloo ranks)")
+    require(ok, "the sharded train step disagrees with the unsharded one")
+    return flops
+
+
+def dist_dryrun(dryruns) -> None:
+    """(b) The dry-run subprocesses started by :func:`dryrun_cli`."""
+    for arch, shape, flags, proc, path in dryruns:
+        t0 = time.perf_counter()
+        try:
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        with open(path) as f:
+            lines = [ln for ln in f.read().splitlines() if ln.startswith("[dryrun]")]
+        require(rc == 0, f"dry run {arch} {shape} exited with {rc}: {lines}")
+        meshes = [(False, 256)] if "--single-pod-only" in flags else [(False, 256),
+                                                                       (True, 512)]
+        print(f"[dist] (b) python -m repro_torch.launch.dryrun --arch {arch} --shape "
+              f"{shape} {' '.join(flags)}: waited {time.perf_counter() - t0:.1f} s")
+        for multi, devices in meshes:
+            mesh = "pod2x16x16" if multi else "pod16x16"
+            with open(os.path.join(DRYRUN_DIR,
+                                   f"{arch}__{shape}__{mesh}__baseline.json")) as f:
+                d = json.load(f)
+            require(d["ok"] and d["devices"] == devices,
+                    f"dry run {arch} {shape} {mesh}: {d.get('error')}")
+            rf, mem = d["roofline"], d["memory"]
+            print(f"  {mesh}: ok, {d['devices']} devices, {mem['bytes_per_device'] / 2**30:.2f}"
+                  f" GiB per device (arguments {mem['arguments'] / 2**30:.2f}, temp "
+                  f"{mem['temp'] / 2**30:.2f}), {d['cost']['flops']:.4g} FLOPs and "
+                  f"{d['cost']['bytes_accessed']:.4g} bytes (unfused) per device, "
+                  f"{d['collectives']['weighted_bytes']:.4g} weighted collective bytes; "
+                  f"terms compute {rf['compute_s']:.4g} s, memory {rf['memory_s']:.4g} s, "
+                  f"collective {rf['collective_s']:.4g} s: bottleneck {rf['bottleneck']}; "
+                  f"model_flops_frac {rf['model_flops_frac']:.3f}; run {d['run_s']} s on "
+                  f"the host")
+
+
+def dist_roofline(step_flops: float, gpu: str) -> None:
+    """(c) ``roofline.model_flops`` of granite's (a) step against the FLOPs
+    the step ran on the card: the reference's ``model_flops_frac``."""
+    from repro_torch.configs.registry import ShapeConfig, get_arch
+    from repro_torch.launch.roofline import model_flops
+
+    cfg = get_arch("granite_3_2b")
+    mf = model_flops(cfg, ShapeConfig("phase10", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    require(step_flops > 0, "the counter saw no FLOPs in the train step")
+    print(f"[dist] (c) model_flops (6 N_active D) of {cfg.name} at batch {TRAIN_BATCH} x "
+          f"seq {TRAIN_SEQ}: {mf:.5g}; FLOPs of one (a) step on the card (matmul and "
+          f"attention products, remat's recompute included): {step_flops:.5g}; "
+          f"model_flops_frac {mf / step_flops:.4f} (1 device); card: {gpu}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2452,13 +2672,19 @@ def main() -> int:
 
 
 def run_phases(gpu: str, sock: str) -> list:
-    """Phases 0-9 with the daemon at ``sock``; returns the kernel records
+    """Phases 0-10 with the daemon at ``sock``; returns the kernel records
     with their launches on the main path."""
     plans = phase_plans(gpu)
     phase_schedd(gpu, sock, plans)
     phase_autotune(gpu, sock)
     # every later plan asks the daemon first
     os.environ["POLYTOPS_TORCH_SCHEDD_SOCK"] = sock
+    with dryrun_cli() as dryruns:
+        return card_phases(gpu, dryruns)
+
+
+def card_phases(gpu: str, dryruns) -> list:
+    """Phases 1-10, with phase 10 (b)'s dry runs going on beside them."""
     phase_build()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -2477,6 +2703,7 @@ def run_phases(gpu: str, sock: str) -> list:
     vlm = phase_vlm(gpu)
     qwen2_vl = phase_serve(gpu, VLM_ARCH, ("matmul", "flash_attention"))
     phase_train(gpu)
+    phase_dist(gpu, dryruns)
     for rec in records:
         rec["launches"] = sum(run[rec["name"]] for run in (granite, falcon, gemma3,
                                                            qwen3_moe, encdec, seamless,

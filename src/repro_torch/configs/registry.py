@@ -1,15 +1,15 @@
 """Architecture registry: the ten architectures as data.
 
 Ports ``src/repro/configs/registry.py`` (``ArchConfig``, ``smoke()``,
-``hd``, ``get_arch``).  The arch files beside this one are copies of the
-reference's, so both packages read the same numbers.  The dry-run shape
-table is not ported: it belongs to ``launch/dryrun.py``, which the port
-does not have yet.
+``hd``, ``get_arch``, the dry run's ``ShapeConfig``, ``SHAPES``,
+``ARCH_IDS`` and ``runnable_cells``).  The arch files beside this one are
+copies of the reference's, so both packages read the same numbers.
 """
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
+from typing import Dict, List, Tuple
 
 
 @dataclass(frozen=True)
@@ -107,3 +107,45 @@ def get_arch(arch_id: str) -> ArchConfig:
     arch_id = arch_id.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.CONFIG
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                # 'train' | 'prefill' | 'decode'
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+ARCH_IDS: List[str] = [
+    "jamba_v0_1_52b",
+    "seamless_m4t_large_v2",
+    "qwen3_moe_30b_a3b",
+    "llama4_scout_17b_a16e",
+    "qwen3_8b",
+    "gemma3_4b",
+    "granite_3_2b",
+    "qwen3_0_6b",
+    "falcon_mamba_7b",
+    "qwen2_vl_7b",
+]
+
+
+def runnable_cells() -> List[Tuple[str, str]]:
+    """All (arch, shape) dry-run cells, applying the brief's skip rules:
+    long_500k only for sub-quadratic archs."""
+    cells = []
+    for aid in ARCH_IDS:
+        cfg = get_arch(aid)
+        for shape in SHAPES.values():
+            if shape.name == "long_500k" and not cfg.sub_quadratic:
+                continue
+            cells.append((aid, shape.name))
+    return cells

@@ -5,8 +5,12 @@
 
 Ports ``src/repro/launch/train.py`` with its flags, plus ``--device``
 (the card by default; ``--device cpu`` runs on the CPU) and ``--seed``.
-``--smoke`` reduces the arch.  The reference's ``--mesh`` and
-``--multi-pod`` come with the distributed path.
+``--smoke`` reduces the arch.  ``--mesh`` trains on the production mesh
+(``--multi-pod``: 2×16×16), which needs this process to be one rank of a
+process group of 256 (512) ranks, initialised from the ``torch.distributed``
+environment variables (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``,
+``WORLD_SIZE``, as ``torchrun`` sets them): NCCL on the card, gloo on the
+CPU.
 """
 from __future__ import annotations
 
@@ -30,7 +34,14 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", action="store_true",
+                    help="use the production mesh (needs a 256-rank process group)")
+    ap.add_argument("--multi-pod", action="store_true")
     args = ap.parse_args(argv)
+    if args.mesh:
+        import torch.distributed as dist
+        if not dist.is_initialized():
+            dist.init_process_group("nccl" if args.device != "cpu" else "gloo")
 
     arch = get_arch(args.arch)
     if args.smoke:
@@ -40,7 +51,7 @@ def main(argv=None):
         seq_len=args.seq, n_micro=args.n_micro, seed=args.seed,
         ckpt_dir=args.ckpt, ckpt_every=args.ckpt_every,
         opt=AdamWConfig(lr=args.lr, total_steps=args.steps),
-        device=args.device,
+        use_mesh=args.mesh, multi_pod=args.multi_pod, device=args.device,
     )
     trainer = Trainer(cfg)
     out = trainer.fit()

@@ -6,16 +6,17 @@ Ports ``src/repro/model/attention.py``: ``_qkv``, ``_sdpa``,
 ``decode_attention``, ``chunk_attention`` and ``paged_decode_attention``.
 Sliding-window layers keep their mask.  The encoder and cross attention
 are plain ``_sdpa`` with no mask, as in the reference: no kernel runs
-them.  ``_sdpa_chunked`` (the reference's ``ATTN_CHUNK``, which only its
-dry run sets) waits for a caller.  qwen2-vl's M-RoPE applies where
+them.  ``ATTN_CHUNK`` (the dry run's ``chunked_attn`` variants set it)
+sends the plain training/prefill attention through
+:func:`_sdpa_chunked`.  qwen2-vl's M-RoPE applies where
 ``attention`` and ``decode_attention`` are given ``mrope_positions``;
 ``chunk_attention`` and ``paged_decode_attention`` pass none, so the
 serving engine runs qwen2-vl with plain rope, as the reference's does.
 
 The reference's functions are pure; here the cache updates are made in
 place (the returned cache tensors are the ones passed in), which saves a
-copy of every layer's cache per step.  Sharding annotations are no-ops on
-one device and are dropped.
+copy of every layer's cache per step.  q and k carry the reference's
+activation annotations (``sharding.shard_activation``).
 """
 from __future__ import annotations
 
@@ -23,12 +24,22 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.registry import ArchConfig
 from .kernel_mode import mode
 from .layers import apply_mrope, apply_rope, dense_init, rmsnorm, rmsnorm_init
+from .sharding import (contiguous_stride, is_dtensor, shard_activation, unshard,
+                       write_at)
 
 NEG_INF = -2.3819763e38
+
+# q-chunked attention (flash-style memory behaviour without a kernel):
+# when > 0 and it divides a longer sequence, the plain training/prefill
+# attention computes q in chunks of this many rows, each under its own
+# activation checkpoint, bounding the live logits to (batch, heads,
+# chunk, seq_kv).  0 = full materialization (baseline).
+ATTN_CHUNK = 0
 
 
 def _flash(q, k, v, q_offset=0, kv_row=0):
@@ -67,12 +78,22 @@ def _qkv(p, cfg: ArchConfig, x, positions, mrope_positions=None):
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     if cfg.mrope and mrope_positions is not None:
-        return apply_mrope(q, mrope_positions), apply_mrope(k, mrope_positions), v
-    return apply_rope(q, positions), apply_rope(k, positions), v
+        q, k = apply_mrope(q, mrope_positions), apply_mrope(k, mrope_positions)
+    else:
+        q, k = apply_rope(q, positions), apply_rope(k, positions)
+    q = shard_activation(q, ("batch", "seq", "heads", None))
+    k = shard_activation(k, ("batch", "seq", "kv_heads", None))
+    return q, k, v
 
 
 def _sdpa(q, k, v, mask, n_rep: int):
     """q: (b, sq, h, d); k/v: (b, skv, hkv, d); mask: (b, sq, skv) or None."""
+    if is_dtensor(q):
+        return _sdpa_sharded(q, k, v, mask, n_rep)
+    return _sdpa_dense(q, k, v, mask, n_rep)
+
+
+def _sdpa_dense(q, k, v, mask, n_rep: int):
     b, sq, h, d = q.shape
     hkv = k.shape[2]
     qf = q.float() / math.sqrt(d)
@@ -84,6 +105,79 @@ def _sdpa(q, k, v, mask, n_rep: int):
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v.float())
     return out.reshape(b, sq, h, d).to(v.dtype)
+
+
+def _sdpa_sharded(q, k, v, mask, n_rep: int):
+    """:func:`_sdpa` on DTensors.  Batch rows and KV head groups are
+    independent, so where no sequence dim is split each rank runs the
+    plain :func:`_sdpa` on its own rows and q heads, with the KV heads
+    those q heads read: rows stay split where q, k and v all split them;
+    q's heads stay split where q splits them, and k's and v's where they
+    split theirs the same way, else each rank takes its KV heads out of
+    whole k and v (more ranks than KV heads, as XLA splits a head dim
+    across a group), and their gradients sum over those ranks.  A split
+    of q's heads that cuts KV groups unevenly is gathered.  (DTensor's
+    einsums would flatten a split heads dim into their products' batch,
+    which it cannot do on every version.)  Where the KV sequence is split
+    (a long cache over "model"), the einsums run as DTensor ops with the
+    heads whole, and the softmax gathers a row of scores over the
+    split."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    if any(isinstance(pl, Shard) and pl.dim == 1 for t in (q, k, v) for pl in t.placements):
+        return _sdpa_dense(unshard(q, 2), unshard(k, 2), unshard(v, 2), mask, n_rep)
+    mesh = q.device_mesh
+    qp, kp = [], []
+    for pq, pk, pv in zip(q.placements, k.placements, v.placements):
+        if pq == pk == pv == Shard(0):
+            qp.append(Shard(0))
+            kp.append(Shard(0))
+        elif pq == Shard(2):
+            qp.append(Shard(2))
+            kp.append(Shard(2) if pk == pv == Shard(2) else Replicate())
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+    q = q.redistribute(mesh, qp)
+    k, v = k.redistribute(mesh, kp), v.redistribute(mesh, kp)
+    (_, _, hq, _), (_, _, q0, _) = compute_local_shape_and_global_offset(q.shape, mesh, qp)
+    (_, _, hk, _), (_, _, k0, _) = compute_local_shape_and_global_offset(k.shape, mesh, kp)
+    lo, hi = q0 // n_rep, (q0 + hq - 1) // n_rep + 1       # this rank's q heads' KV heads
+    whole = q0 % n_rep == 0 and hq % n_rep == 0
+    if not (whole or hi == lo + 1) or lo < k0 or hi > k0 + hk:
+        return _sdpa_sharded(unshard(q, 2), k, v, mask, n_rep)
+    grad = [Partial() if a == Shard(2) and b == Replicate() else b for a, b in zip(qp, kp)]
+    kl, vl = (t.to_local(grad_placements=grad)[:, :, lo - k0:hi - k0] for t in (k, v))
+    if mask is not None:
+        if not is_dtensor(mask):
+            mask = DTensor.from_local(mask, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        mask = mask.redistribute(mesh, [pl if pl == Shard(0) else Replicate()
+                                        for pl in qp]).to_local()
+    out = _sdpa_dense(q.to_local(), kl, vl, mask, hq // (hi - lo))
+    return DTensor.from_local(out.contiguous(), mesh, qp, run_check=False,
+                              shape=q.shape, stride=contiguous_stride(q.shape))
+
+
+def _sdpa_chunked(q, k, v, n_rep: int, window: int, chunk: int,
+                  causal: bool = True):
+    """:func:`_sdpa` over q in chunks of ``chunk`` rows (``chunk`` divides
+    sq), each under its own activation checkpoint, so backward keeps only
+    q, k and v live, as the reference's ``lax.map`` of a checkpointed
+    chunk does."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    cols = torch.arange(skv, device=q.device)[None, :]
+
+    def one(qc, lo: int):
+        rows = lo + torch.arange(chunk, device=q.device)[:, None]
+        m = rows >= cols if causal else torch.ones((chunk, skv), dtype=torch.bool,
+                                                    device=q.device)
+        if window:
+            m &= (rows - cols) < window
+        return _sdpa(qc, k, v, m[None].expand(b, chunk, skv), n_rep)
+
+    return torch.cat([checkpoint(one, q[:, lo:lo + chunk], lo, use_reentrant=False)
+                      for lo in range(0, sq, chunk)], dim=1)
 
 
 def causal_mask(sq: int, window: int = 0, device=None) -> torch.Tensor:
@@ -101,11 +195,14 @@ def attention(p, cfg: ArchConfig, x, positions, *, window: int = 0,
     q, k, v = _qkv(p, cfg, x, positions, mrope_positions)
     sq = x.shape[1]
     md = mode()
+    n_rep = cfg.n_heads // cfg.n_kv_heads
     if md.enabled and window == 0 and sq >= md.min_attn_q:
         out = _flash(q, k, v)
+    elif ATTN_CHUNK and sq > ATTN_CHUNK and sq % ATTN_CHUNK == 0:
+        out = _sdpa_chunked(q, k, v, n_rep, window, ATTN_CHUNK)
     else:
         mask = causal_mask(sq, window, x.device).expand(x.shape[0], sq, sq)
-        out = _sdpa(q, k, v, mask, cfg.n_heads // cfg.n_kv_heads)
+        out = _sdpa(q, k, v, mask, n_rep)
     out = out.reshape(x.shape[0], sq, -1) @ p["wo"]
     if return_kv:
         return out, (k, v)
@@ -146,8 +243,8 @@ def decode_attention(p, cfg: ArchConfig, x, k_cache, v_cache, cache_len: int,
     positions = torch.full((b, 1), cache_len, dtype=torch.long,
                            device=x.device)
     q, k_new, v_new = _qkv(p, cfg, x, positions, mrope_positions)
-    k_cache[:, cache_len] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, cache_len] = v_new[:, 0].to(v_cache.dtype)
+    write_at(k_cache, 1, cache_len, k_new[:, 0].to(k_cache.dtype))
+    write_at(v_cache, 1, cache_len, v_new[:, 0].to(v_cache.dtype))
     S = k_cache.shape[1]
     j = torch.arange(S, device=x.device)[None, None, :]
     mask = j <= cache_len

@@ -1,6 +1,6 @@
 """Core layers: dtype and device resolution, init, rmsnorm, rope, M-RoPE, embed.
 
-Ports ``src/repro/model/layers.py``.  Conventions are the reference's:
+Ports ``src/repro/model/layers.py``, with its ``EMBED_MODE``.  Conventions are the reference's:
 matmul weights are stored ``(in, out)`` and used as ``x @ W``; norms,
 softmax and rope math run in f32 and cast back to the input dtype.
 Weights are drawn through an explicit ``torch.Generator`` (the reference
@@ -13,6 +13,8 @@ import math
 from typing import Optional, Tuple, Union
 
 import torch
+
+from .sharding import one_axis_per_dim, one_hot
 
 Device = Union[str, torch.device]
 
@@ -128,8 +130,19 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
 # embedding / unembedding
 # ---------------------------------------------------------------------------
 
+# embedding lookup mode: 'take' indexes the table (which gathers a
+# vocab-sharded table); 'onehot' contracts a one-hot against the table,
+# a local product on each vocab shard and a small all-reduce (the dry
+# run's decode variants).
+EMBED_MODE = "take"
+
+
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    if EMBED_MODE == "onehot":
+        return one_hot(tokens, table.shape[0]).to(table.dtype) @ table
+    # DTensor's rule for this index cannot take ids split over two mesh
+    # axes (the multi-pod batch) on every version: gathered over "pod"
+    return table[one_axis_per_dim(tokens)]
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

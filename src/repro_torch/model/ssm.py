@@ -17,8 +17,11 @@ reference chooses them (``ssm.py:58-62``):
   model dtype before the gate.  The reference runs an associative scan
   here; the sequential loop does the same operations whether a prompt is
   processed whole or in chunks, so chunked prefill equals whole-prompt
-  prefill bit for bit.  The selective_scan kernel is on no model path,
-  as in the reference (``ssm.py:87-94``).
+  prefill bit for bit.  On a mesh (DTensor coefficients) the plain
+  route takes the reference's associative form instead
+  (:func:`_scan`): ⌈log2 s⌉ doubling steps, where the loop would
+  dispatch s DTensor ops per layer.  The selective_scan kernel is on no
+  model path, as in the reference (``ssm.py:87-94``).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from ..configs.registry import ArchConfig
 from ..kernels.ref import contract_state, ssm_scan
 from .kernel_mode import mode
 from .layers import dense_init
+from .sharding import is_dtensor, reduced, shard_activation
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -58,12 +62,31 @@ def init_mamba(gen: torch.Generator, cfg: ArchConfig,
     }
 
 
+def _scan(a, b, h0=None):
+    """Every state h_t = a_t ⊙ h_{t-1} + b_t along axis 1 in f32, from
+    ``h0`` (zeros when None): the sequential loop of ``ref.ssm_scan``, or
+    for DTensor coefficients the reference's associative scan, whose
+    pairs combine as (a_x·a_y, b_x·a_y + b_y), in doubling steps
+    (Hillis–Steele)."""
+    if not is_dtensor(a):
+        return ssm_scan(a, b, h0)
+    a, b = a.float(), b.float()
+    k = 1
+    while k < a.shape[1]:
+        b = torch.cat([b[:, :k], b[:, :-k] * a[:, k:] + b[:, k:]], 1)
+        a = torch.cat([a[:, :k], a[:, :-k] * a[:, k:]], 1)
+        k *= 2
+    return b if h0 is None else b + a * h0.float()[:, None]
+
+
 def _ssm_inputs(p, cfg: ArchConfig, xs):
     """Input-dependent recurrence coefficients from post-conv
     activations xs (b, s, di): (a_bar, b_bar (b, s, di, st) f32,
     Cm (b, s, st) f32)."""
     st, dtr = cfg.ssm_state, cfg.dt_rank_
-    proj = (xs @ p["x_proj"]).float()                           # (b, s, dtr+2st)
+    # a product over a split d_inner is a partial sum: reduced here, as
+    # some DTensor versions cannot add dt_bias (split) to a partial
+    proj = reduced(xs @ p["x_proj"]).float()                    # (b, s, dtr+2st)
     dt_r, Bm, Cm = proj.split([dtr, st, st], dim=-1)
     dt = softplus(dt_r @ p["dt_proj"].float() + p["dt_bias"])
     A = -torch.exp(p["a_log"])                                  # (di, st)
@@ -82,7 +105,7 @@ def _selective_ssm(p, cfg: ArchConfig, xs, return_last: bool = False):
     """xs: (b, s, di) post-conv activations; returns ((b, s, di) in the
     model dtype, h_last f32 or None)."""
     a_bar, b_bar, Cm = _ssm_inputs(p, cfg, xs)
-    h = ssm_scan(a_bar, b_bar)                                  # (b, s, di, st)
+    h = _scan(a_bar, b_bar)                                     # (b, s, di, st)
     y = contract_state(h, Cm) + xs.float() * p["d_skip"]
     return y.to(xs.dtype), (h[:, -1] if return_last else None)
 
@@ -98,11 +121,15 @@ def mamba(p, cfg: ArchConfig, x, return_state: bool = False):
     also returns (conv_state (b, cw-1, di), h_last (b, di, st) f32)."""
     di = cfg.d_inner
     xs, z = (x @ p["in_proj"]).split([di, di], dim=-1)
+    xs = shard_activation(xs, ("batch", "seq", "ffn"))
     w = p["conv_w"].float()                                     # (cw, di)
     cw = w.shape[0]
     pre_conv = xs
-    pad = F.pad(xs.float(), (0, 0, cw - 1, 0))
-    xs = F.silu(_conv(pad, w, xs.shape[1]) + p["conv_b"]).to(x.dtype)
+    # the causal pad as a concatenation of zeros (a DTensor pad's
+    # placements break redistribution on some versions)
+    b, s, _ = xs.shape
+    pad = torch.cat([xs.new_zeros((b, cw - 1, di), dtype=torch.float32), xs.float()], 1)
+    xs = F.silu(_conv(pad, w, s) + p["conv_b"]).to(x.dtype)
     if _fused_scan_gate(xs):
         from ..kernels import ops
         a_bar, b_bar, Cm = _ssm_inputs(p, cfg, xs)
@@ -110,6 +137,7 @@ def mamba(p, cfg: ArchConfig, x, return_state: bool = False):
     else:
         y, h_last = _selective_ssm(p, cfg, xs, return_last=return_state)
         y = y * F.silu(z)
+    y = shard_activation(y, ("batch", "seq", "ffn"))
     out = y @ p["out_proj"]
     if return_state:
         return out, (pre_conv[:, -(cw - 1):, :], h_last)
@@ -174,7 +202,7 @@ def mamba_chunk(p, cfg: ArchConfig, x, conv_state, ssm_state
         y, h_last = ops.scan_gate(a_bar, b_bar, Cm, xs, p["d_skip"], z,
                                   h0=ssm_state)
     else:
-        h = ssm_scan(a_bar, b_bar, ssm_state)
+        h = _scan(a_bar, b_bar, ssm_state)
         y = contract_state(h, Cm) + xs.float() * p["d_skip"]
         y = y.to(xs.dtype) * F.silu(z)
         h_last = h[:, -1]

@@ -19,8 +19,13 @@ from the reference:
 * Cache updates are in place (the KV rows, and in
   :func:`serve_decode_step` the Mamba states too); the step functions
   return the cache they were given, so callers read as in the reference.
-* Sharding annotations and ``gather_params_for_compute`` are no-ops on
-  one device and are dropped.
+* The reference's activation annotations (``sharding.shard_activation``)
+  stand at its sites, and each layer's parameters pass through
+  ``gather_params_for_compute`` as the loops reach them (the reference
+  gathers its scanned slots; here every layer, the tail's too).  Both
+  are the identity outside a mesh.  The reference's ``UNROLL`` has no
+  counterpart: the Python layer loop already unrolls, and the dry run
+  counts every layer.
 
 The decoder's mixers are attention and Mamba (``model/ssm.py``), each
 with a SwiGLU MLP, a mixture of experts or no FFN: dense decoders, the
@@ -62,6 +67,7 @@ from . import mlp as MLP
 from . import ssm as SSM
 from .layers import (dense_init, device_of, dtype_of, embed, embed_init,
                      make_generator, rmsnorm, rmsnorm_init, unembed)
+from .sharding import gather_params_for_compute, is_dtensor, one_hot, shard_activation
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -242,6 +248,7 @@ def _apply_layer(p, spec: LayerSpec, cfg: ArchConfig, x, positions,
             h = r
     x = _cross(p, spec, cfg, x + h, memory, positions)
     x, aux = _ffn(p, spec, cfg, x)
+    x = shard_activation(x, ("batch", "seq", None))
     return x, aux, kv
 
 
@@ -258,8 +265,8 @@ def _run_stack(layers, cfg: ArchConfig, role: str, x, positions, memory=None,
 
     def run(x, aux, lo: int, hi: int):
         for i in range(lo, hi):
-            x, a, _ = _apply_layer(layers[i], specs[i], cfg, x, positions, memory,
-                                   mrope_positions)
+            x, a, _ = _apply_layer(gather_params_for_compute(layers[i]), specs[i],
+                                   cfg, x, positions, memory, mrope_positions)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -293,7 +300,8 @@ def encode(params, cfg: ArchConfig, enc_frontend: Optional[torch.Tensor]):
     enc_in = _frontend_embeds(params, cfg, enc_frontend)
     b, fl = enc_in.shape[:2]
     epos = torch.arange(fl, device=enc_in.device)[None].expand(b, fl)
-    memory, _ = _run_stack(params["enc_layers"], cfg, "encoder", enc_in, epos)
+    memory, _ = _run_stack(params["enc_layers"], cfg, "encoder",
+                           shard_activation(enc_in, ("batch", "seq", None)), epos)
     return rmsnorm(memory, params["enc_final_ln"], cfg.norm_eps)
 
 
@@ -332,6 +340,7 @@ def _inputs(params, cfg: ArchConfig, tokens: torch.Tensor,
     b, seq = x.shape[:2]
     positions = torch.arange(seq, device=x.device)[None].expand(b, seq)
     mpos = _mrope_positions(cfg, b, seq, x.device) if cfg.mrope else None
+    x = shard_activation(x, ("batch", "seq", None))
     return x, positions, mpos, encode(params, cfg, enc_frontend)
 
 
@@ -347,7 +356,7 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     x, positions, mpos, memory = _inputs(params, cfg, tokens, frontend, enc_frontend)
     x, aux = _run_stack(params["layers"], cfg, "decoder", x, positions, memory, mpos)
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-    return unembed(x, _head(params)), aux
+    return shard_activation(unembed(x, _head(params)), ("batch", "seq", "vocab")), aux
 
 
 def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -358,7 +367,14 @@ def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
     logits, aux = forward(params, cfg, tokens, frontend, enc_frontend)
     lf = logits[:, -labels.shape[1]:].float()
     logz = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, labels[..., None].long())[..., 0]
+    if is_dtensor(lf):
+        # on a mesh the gold logit is a one-hot contraction over each rank's
+        # vocab shard (exact: one nonzero term per row).  DTensor's gather
+        # over vocab-sharded logits reduces a masked partial of the wrong
+        # rank, and its backward allocates the whole global gradient
+        gold = (lf * one_hot(labels, lf.shape[-1], like=lf)).sum(-1)
+    else:
+        gold = lf.gather(-1, labels[..., None].long())[..., 0]
     return (logz - gold).mean() + 0.01 * aux
 
 
@@ -378,7 +394,8 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     x, positions, mpos, memory = _inputs(params, cfg, tokens, frontend, enc_frontend)
     cache: Cache = []
     for p, spec in zip(params["layers"], layer_specs(cfg)):
-        x, _, kv = _apply_layer(p, spec, cfg, x, positions, memory, mpos, collect=True)
+        x, _, kv = _apply_layer(gather_params_for_compute(p), spec, cfg, x, positions,
+                                memory, mpos, collect=True)
         cache.append(kv)
     x = rmsnorm(x[:, -1:, :], params["final_ln"], cfg.norm_eps)
     return unembed(x[:, 0, :], _head(params)), cache
@@ -507,7 +524,7 @@ def _stack_walk(params, cfg: ArchConfig, x, cache: Cache, layer_fn):
     specs = layer_specs(cfg)
     new_cache: Cache = []
     for p, spec, lc in zip(params["layers"], specs, cache):
-        x, nc = layer_fn(p, spec, x, lc)
+        x, nc = layer_fn(gather_params_for_compute(p), spec, x, lc)
         new_cache.append(nc)
     return x, new_cache
 
@@ -537,7 +554,7 @@ def chunk_step(params, cfg: ArchConfig, tokens: torch.Tensor, cache: Cache,
     :func:`cache_slot_view`, by an int or a device slot) with all rows
     < offset already prefilled.  Returns (logits (b, c, vocab) for every
     chunk position, cache)."""
-    x = embed(tokens, params["embed"])
+    x = shard_activation(embed(tokens, params["embed"]), ("batch", "seq", None))
     x, cache = _stack_walk(
         params, cfg, x, cache,
         lambda p, spec, xc, lc: _chunk_layer(p, spec, cfg, xc, lc, offset,

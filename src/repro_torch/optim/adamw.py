@@ -40,8 +40,12 @@ class AdamWConfig:
 
 
 def init(params) -> AdamWState:
+    """m and v as f32 zeros placed like each parameter (a DTensor's of
+    the same placements: the reference's states inherit the parameters'
+    specs)."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
     dev = leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m=map_tree(zeros, params), v=map_tree(zeros, params))

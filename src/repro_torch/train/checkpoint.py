@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..model.layers import device_of
+from ..model.sharding import full
 from ..optim.adamw import AdamWState
 from ..tree import flatten, unflatten
 
@@ -36,7 +37,7 @@ from ..tree import flatten, unflatten
 def _to_host(tree) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
     flat, dtypes = {}, {}
     for key, t in flatten(tree).items():
-        t = t.detach().cpu()
+        t = full(t).detach().cpu()        # a DTensor's global value
         dtypes[key] = str(t.dtype).removeprefix("torch.")
         if t.dtype == torch.bfloat16:      # numpy has no bf16: keep the bits
             flat[key] = t.view(torch.int16).numpy().view(np.uint16)

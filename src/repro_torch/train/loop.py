@@ -1,12 +1,16 @@
-"""Training orchestrator: data, steps, checkpoints, fault hooks.
+"""Training orchestrator: mesh, data, steps, checkpoints, fault hooks.
 
-Ports ``src/repro/train/loop.py`` (``TrainConfig``, ``Trainer``) on one
-device, the card unless ``TrainConfig.device`` says otherwise.  The
-production mesh (the reference's ``use_mesh``, ``multi_pod``) and its
-``grad_compress`` field come with the distributed path.  As in the
-reference, the trainer leaves the kernel mode as it finds it (off by
-default): no hand-written kernel has a backward, and the kernel wrappers
-refuse inputs that require grad.
+Ports ``src/repro/train/loop.py`` (``TrainConfig``, ``Trainer``), on the
+card unless ``TrainConfig.device`` says otherwise.  With ``use_mesh``
+the trainer builds the production mesh (``launch/mesh.py``; the process
+group must already hold its 256 or 512 ranks), installs its logical
+rules, FSDP handlers and MoE routing groups, and places parameters,
+AdamW state and each batch as DTensors by ``param_pspecs`` and
+``batch_pspec``; :meth:`Trainer.close` clears all of it.
+``grad_compress`` is carried as in the reference, which never reads it.
+As in the reference, the trainer leaves the kernel mode as it finds it
+(off by default): no hand-written kernel has a backward, and the kernel
+wrappers refuse inputs that require grad.
 """
 from __future__ import annotations
 
@@ -19,6 +23,9 @@ from ..configs.registry import ArchConfig
 from ..data.pipeline import DataConfig, SyntheticLM
 from ..model import transformer as T
 from ..model.layers import device_of
+from ..model.sharding import (clear_logical_rules, clear_param_handlers,
+                              set_logical_rules, set_moe_groups,
+                              set_param_handlers, spec_to_placements)
 from ..optim import adamw
 from ..tree import leaves
 from . import checkpoint as CKPT
@@ -38,6 +45,9 @@ class TrainConfig:
     ckpt_every: int = 50
     log_every: int = 10
     opt: adamw.AdamWConfig = field(default_factory=adamw.AdamWConfig)
+    use_mesh: bool = False          # production mesh (dry-run topology)
+    multi_pod: bool = False
+    grad_compress: bool = False
     device: str = "cuda"
 
 
@@ -46,15 +56,45 @@ class Trainer:
         self.cfg = cfg
         self.arch = cfg.arch
         self.device = device_of(cfg.device)
+        self.mesh = None
+        if cfg.use_mesh:
+            from ..launch import mesh as M
+            self.mesh = M.make_production_mesh(multi_pod=cfg.multi_pod,
+                                               device_type=self.device.type)
+            rules = M.logical_rules(self.arch, self.mesh, batch=cfg.global_batch)
+            set_logical_rules(self.mesh, rules)
+            gf, gr = M.make_param_handlers(self.arch, self.mesh)
+            set_param_handlers(gf, gr)
+            set_moe_groups(M.axis_size(self.mesh, M.dp_axes(self.mesh)))
         self.data = SyntheticLM(DataConfig(
             vocab=self.arch.vocab, seq_len=cfg.seq_len,
             global_batch=cfg.global_batch, seed=cfg.seed))
-        self.params = self._trainable(
-            T.init_params(self.arch, seed=cfg.seed, device=self.device))
+        self.params = self._trainable(self._place(
+            T.init_params(self.arch, seed=cfg.seed, device=self.device)))
         self.opt_state = adamw.init(self.params)
         self.step_fn = STEPS.make_train_step(self.arch, cfg.opt, cfg.n_micro)
         self.step = 0
         self.history: list = []
+
+    def _place(self, params):
+        """``params`` (or a tree of their structure) as DTensors placed by
+        ``param_pspecs`` on the mesh; as they are without one."""
+        if self.mesh is None:
+            return params
+        from ..launch import mesh as M
+        return M.distribute(params, M.param_pspecs(params, self.arch, self.mesh),
+                            self.mesh)
+
+    def _batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The batch rows over the data-parallel axes (``batch_pspec``)."""
+        if self.mesh is None:
+            return batch
+        from torch.distributed.tensor import distribute_tensor
+
+        from ..launch import mesh as M
+        rows = spec_to_placements(M.batch_pspec(self.mesh, self.cfg.global_batch),
+                                  self.mesh.mesh_dim_names)
+        return {k: distribute_tensor(v, self.mesh, rows) for k, v in batch.items()}
 
     @staticmethod
     def _trainable(params):
@@ -75,9 +115,10 @@ class Trainer:
         if latest is None:
             return 0
         self.params = self.opt_state = None       # free the old state first
-        params, self.opt_state, meta = CKPT.restore(self.cfg.ckpt_dir,
-                                                    device=self.device)
-        self.params = self._trainable(params)
+        params, opt_state, meta = CKPT.restore(self.cfg.ckpt_dir, device=self.device)
+        self.opt_state = adamw.AdamWState(opt_state.step, self._place(opt_state.m),
+                                          self._place(opt_state.v))
+        self.params = self._trainable(self._place(params))
         self.step = meta["step"]
         return self.step
 
@@ -94,7 +135,7 @@ class Trainer:
             batch["enc_frontend"] = torch.zeros(stub, dtype=torch.bfloat16,
                                                 device=self.device)
         self.params, self.opt_state, metrics = self.step_fn(
-            self.params, self.opt_state, batch)
+            self.params, self.opt_state, self._batch(batch))
         # one device read per step, as the reference's float() of each metric
         m = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
         self.history.append(m)
@@ -114,6 +155,8 @@ class Trainer:
         return out
 
     def close(self):
-        """Drop the parameters and optimizer state.  The reference clears
-        its mesh rules here; one device has none."""
+        """Drop the parameters and optimizer state, and clear the mesh's
+        rules, handlers and routing groups."""
         self.params = self.opt_state = None
+        clear_logical_rules()
+        clear_param_handlers()

@@ -9,6 +9,13 @@ and returns the objects it was given.  A batch is ``tokens`` and
 ``labels``, and for a vlm also ``frontend`` (b, frontend_len, d_model),
 for an encoder-decoder ``enc_frontend`` (b, frames, d_model), split into
 micro-batches with them (:func:`_batch_kw`).
+
+On a mesh (parameters, optimizer state and batch as DTensors, rules
+installed by the launcher) the steps run under
+``sharding.sharded()``, and each micro-batch's gradients pass through
+``sharding.constrain_grads``, as the reference's accumulators do, and
+are then placed as their parameters (a partial gradient is reduced);
+the metrics come back as plain (replicated) scalars.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 
 from ..configs.registry import ArchConfig
 from ..model import transformer as T
+from ..model.sharding import constrain_grads, full, placed_like, sharded
 from ..optim import adamw
 from ..tree import leaves, with_leaves
 
@@ -44,6 +52,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, n_micro: int):
 
     def train_step(params, opt_state: adamw.AdamWState,
                    batch: Dict[str, torch.Tensor]):
+        with sharded():
+            return step(params, opt_state, batch)
+
+    def step(params, opt_state, batch):
         nonlocal acc
         flat_p = leaves(params)
         gb = batch["tokens"].shape[0]
@@ -57,13 +69,17 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, n_micro: int):
         losses, grads = [], None
         for i, (tok, lab, *ex) in enumerate(micro):
             loss = T.lm_loss(params, cfg, tok, lab, **dict(zip(extra, ex)))
-            g = torch.autograd.grad(loss, flat_p)
+            # at their parameters' placements: AdamW updates in place,
+            # which DTensor allows only there
+            g = [placed_like(gi, p) for gi, p in zip(leaves(constrain_grads(
+                with_leaves(params, list(torch.autograd.grad(loss, flat_p))))), flat_p)]
             losses.append(loss.detach())
             if n_micro == 1:
                 grads = g
                 continue
             if acc is None:
-                acc = [torch.empty(p.shape, dtype=torch.float32, device=p.device)
+                acc = [torch.empty_like(p, dtype=torch.float32,
+                                        memory_format=torch.contiguous_format)
                        for p in flat_p]
             with torch.no_grad():
                 for a, gi in zip(acc, g):
@@ -78,8 +94,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, n_micro: int):
             grads = acc
         params, opt_state, metrics = adamw.update(
             opt_cfg, with_leaves(params, list(grads)), opt_state, params)
-        metrics = dict(metrics, loss=torch.stack(losses).mean())
-        return params, opt_state, metrics
+        metrics = dict(metrics, loss=torch.stack([full(x) for x in losses]).mean())
+        return params, opt_state, {k: full(v) for k, v in metrics.items()}
 
     return train_step
 
@@ -87,7 +103,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, n_micro: int):
 def make_prefill_step(cfg: ArchConfig):
     @torch.no_grad()
     def prefill_step(params, batch):
-        return T.prefill(params, cfg, batch["tokens"], **_batch_kw(cfg, batch))
+        with sharded():
+            return T.prefill(params, cfg, batch["tokens"], **_batch_kw(cfg, batch))
     return prefill_step
 
 
@@ -97,6 +114,7 @@ def make_serve_step(cfg: ArchConfig):
     ``batch["memory"]`` if given."""
     @torch.no_grad()
     def serve_step(params, batch):
-        return T.decode_step(params, cfg, batch["token"], batch["cache"],
-                             batch["cache_len"], batch.get("memory"))
+        with sharded():
+            return T.decode_step(params, cfg, batch["token"], batch["cache"],
+                                 batch["cache_len"], batch.get("memory"))
     return serve_step

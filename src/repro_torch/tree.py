@@ -27,6 +27,18 @@ def map_tree(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def map_with_path(fn: Callable, tree, prefix: str = ""):
+    """``fn(path, leaf)`` leaf by leaf, ``path`` as :func:`flatten` keys
+    it (``layers/0/mixer/wq``)."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_with_path(fn, v, f"{prefix}/{i}" if prefix else str(i))
+                for i, v in enumerate(tree)]
+    return fn(prefix, tree)
+
+
 def with_leaves(tree, values: List[Any]):
     """A tree of ``tree``'s structure holding ``values`` in leaf order."""
     it = iter(values)

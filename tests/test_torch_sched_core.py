@@ -320,12 +320,20 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-print(json.dumps({"n": len(names),
+import torch.distributed as dist
+print(json.dumps({"n": len(names), "names": names,
+                  "group": dist.is_available() and dist.is_initialized(),
                   "foreign": sorted(m for m in sys.modules
-                                    if m.split(".")[0] in ("repro", "jax"))}))
+                                    if m.split(".")[0] in ("repro", "jax", "ml_dtypes"))}))
 """
 
 
 def test_importing_every_port_module_leaves_jax_and_repro_out(tmp_path):
+    """Every module of the port in a fresh interpreter, the distributed
+    half's among them: none brings in ``jax``, ``ml_dtypes`` or the
+    reference, and importing starts no process group."""
     got = run_py(IMPORT_SCRIPT, tmp_path)
-    assert got["n"] > 40 and got["foreign"] == []
+    assert got["n"] > 40 and got["foreign"] == [] and not got["group"]
+    assert {"repro_torch.launch.roofline", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun", "repro_torch.model.sharding",
+            "repro_torch.optim.grad_compress"} <= set(got["names"])
