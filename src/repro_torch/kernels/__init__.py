@@ -1,9 +1,11 @@
 """Hand-written Hopper kernels and their plain PyTorch versions (mirrors ``src/repro/kernels``)."""
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Dict
 
 
+@lru_cache(maxsize=None)
 def _wrappers():
     from . import flash_attention, mamba_scan, matmul_polytops, scan_gate
     return {"matmul": matmul_polytops, "flash_attention": flash_attention,

@@ -3,11 +3,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         [--arch granite_3_2b|falcon_mamba_7b|gemma3_4b|qwen3_moe_30b_a3b|...] \
         [--batch 4 --prompt-len 16 --gen 12 --chunk 16] [--kernels] \
-        [--smoke] [--device cuda|cpu]
+        [--smoke] [--device cuda|cpu] [--trace PATH]
 
 Ports ``src/repro/launch/serve.py``.  Full width on ``cuda`` is the
 default; ``--smoke`` opts in to the reduced config and ``--device cpu``
-to the CPU, where the kernels' plain versions run.
+to the CPU, where the kernels' plain versions run.  ``--trace PATH``
+records the serving run's spans (:mod:`repro_torch.spans`) and writes
+them to PATH as Chrome-trace JSON: host spans and device intervals.
 
 * :class:`ServeEngine` — the alternating baseline: whole-prompt prefill
   into a slot, then lock-step decode of every slot at a shared
@@ -62,28 +64,35 @@ from __future__ import annotations
 import argparse
 import time
 from collections import deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Tuple
 
 import torch
 
 from ..configs.registry import get_arch
+from ..kernels import add_launches, launch_counts
 from ..model import transformer as T
 from ..model.kernel_mode import KernelMode, kernel_mode
 from ..model.layers import device_of, make_generator
 from ..plan import ATTN_HEAD_DIMS, plan_attention, plan_matmul, plan_scan_gate
+from ..spans import last_session, recording, span, write_chrome
 
 
 @dataclass
 class Request:
+    """A prompt and what serving it gave.  :class:`ContinuousEngine`
+    stamps its times on ``time.perf_counter()``: submitted, given a slot,
+    its first prompt chunk launched, and (``sync`` engines) each token
+    read back."""
     rid: int
     prompt: torch.Tensor           # (1, plen) token ids
     generated: List[int] = field(default_factory=list)
     done: bool = False
     max_new: int = 0               # 0 = engine default
     t_submit: float = 0.0
-    t_first: float = 0.0           # first generated token (prefill done)
+    t_admit: float = 0.0
+    t_prefill: float = 0.0
     token_times: List[float] = field(default_factory=list)
 
 
@@ -152,8 +161,6 @@ class CapturedTick:
         self.replays = 0
 
     def replay(self) -> None:
-        from ..kernels import add_launches
-
         self.graph.replay()
         add_launches(self.launches)
         self.replays += 1
@@ -267,14 +274,18 @@ class ContinuousEngine:
         """One decode tick: with graphs, a replay of kv bucket ``kv``'s
         graph (captured at its first use), else eager ops.  Returns the
         next-token buffer."""
+        rows = self.state.count(DECODE)
         if not self.cuda_graphs:
-            self._decode_step(kv)
+            with span("serve.decode", self.device, rows=rows, kv=kv):
+                self._decode_step(kv)
             return self.nxt
         key = kv if self._attends else 0
         graph = self.graphs.get(key)
         if graph is None:
-            graph = self.graphs[key] = self._capture(kv)
-        graph.replay()
+            with span("serve.capture", key=key):
+                graph = self.graphs[key] = self._capture(kv)
+        with span("serve.decode", self.device, rows=rows, kv=kv):
+            graph.replay()
         return self.nxt
 
     def _decode_k(self, kv: int, k: int) -> None:
@@ -312,18 +323,24 @@ class ContinuousEngine:
         to the device, then with graphs a replay of the (c, kv) graph
         (captured at its first use), else eager ops."""
         c = toks.shape[1]
-        self._ctoks[:, :c].copy_(toks)
-        self._coff.fill_(off)
-        self._cslot.fill_(slot)
-        self._clast.fill_(last)
+        req = self.slots[slot]
+        rid = req.rid if req is not None else None
+        with span("serve.stage", self.device, rid=rid):
+            self._ctoks[:, :c].copy_(toks)
+            self._coff.fill_(off)
+            self._cslot.fill_(slot)
+            self._clast.fill_(last)
         if not self.cuda_graphs:
-            self._chunk_step(c, kv)
+            with span("serve.chunk", self.device, rid=rid, rows=c, kv=kv):
+                self._chunk_step(c, kv)
             return
         key = (c, kv if self._attends else 0)
         graph = self.chunk_graphs.get(key)
         if graph is None:
-            graph = self.chunk_graphs[key] = self._capture(kv, c)
-        graph.replay()
+            with span("serve.capture", key=key):
+                graph = self.chunk_graphs[key] = self._capture(kv, c)
+        with span("serve.chunk", self.device, rid=rid, rows=c, kv=kv):
+            graph.replay()
 
     def _mixed_tick(self, toks, off, slot, last, kv_d, kv_p) -> torch.Tensor:
         # overlap tick: decode every active slot AND land one prefill
@@ -412,8 +429,6 @@ class ContinuousEngine:
         launches are recorded and added at every replay.  A decode capture
         raises if a hand-written kernel launched: none runs in a decode
         tick."""
-        from ..kernels import add_launches, launch_counts
-
         t0 = time.perf_counter()
         before = launch_counts()
         with self._side_stream():
@@ -446,7 +461,7 @@ class ContinuousEngine:
             raise ValueError(f"request {req.rid} exceeds max_len")
         if (req.max_new or self.max_new) > self.buf.shape[1]:
             raise ValueError(f"request {req.rid} exceeds token buffer")
-        req.t_submit = req.t_submit or time.time()
+        req.t_submit = req.t_submit or time.perf_counter()
         self.queue.append(req)
 
     def _set_state(self, i: int, st: int):
@@ -460,13 +475,15 @@ class ContinuousEngine:
                 return
             if self.state[i] == FREE:
                 req = self.queue.popleft()
-                # reused-slot hygiene: drop every cache row the previous
-                # occupant wrote before the new request's chunks land
-                T.zero_cache_slot(self.cache, i)
-                self.lens[i] = 0
-                self.pos[i] = 0
-                self.slots[i] = req
-                self._set_state(i, PREFILL)
+                req.t_admit = time.perf_counter()
+                with span("serve.admit", self.device, rid=req.rid, slot=i):
+                    # reused-slot hygiene: drop every cache row the previous
+                    # occupant wrote before the new request's chunks land
+                    T.zero_cache_slot(self.cache, i)
+                    self.lens[i] = 0
+                    self.pos[i] = 0
+                    self.slots[i] = req
+                    self._set_state(i, PREFILL)
                 self.prefill_pos[i] = 0
                 self.lengths[i] = 0
                 self.gen_count[i] = 0
@@ -477,16 +494,20 @@ class ContinuousEngine:
     # -- one engine tick -------------------------------------------------
     def tick(self) -> bool:
         """Run one engine iteration; returns True if any work was done."""
-        with kernel_mode(**self._mode_kw):
-            return self._tick()
+        with span("serve.tick") as sp, kernel_mode(**self._mode_kw):
+            kind = self._tick()
+            sp.set(kind=kind or "idle")
+            return kind is not None
 
-    def _tick(self) -> bool:
+    def _tick(self) -> Optional[str]:
+        """One iteration; returns its kind (``decode``, ``chunk``,
+        ``mixed`` or ``decode_k``), or None when there was no work."""
         self._admit_free_slots()
         decoding = [i for i in range(self.batch) if self.state[i] == DECODE]
         prefilling = [i for i in range(self.batch)
                       if self.state[i] == PREFILL]
         if not decoding and not prefilling:
-            return False
+            return None
         self.ticks += 1
         nxt_dev = None
 
@@ -509,7 +530,7 @@ class ContinuousEngine:
                     self.lengths[i] += k
                     self.gen_count[i] += k
                     self._maybe_retire(i)
-                return True
+                return "decode_k"
 
         kv_d = (self._bucket(max(self.lengths[i] for i in decoding) + 1)
                 if decoding else 0)
@@ -521,18 +542,23 @@ class ContinuousEngine:
             toks = req.prompt[:, off:off + c]
             kv_p = self._bucket(off + c)
             last = off + c == req.prompt.shape[1]
+            if off == 0:
+                req.t_prefill = time.perf_counter()
 
         if decoding and ci is not None:
             nxt_dev = self._mixed_tick(toks, off, ci, last, kv_d, kv_p)
             self.ticks_decode += 1
             self.ticks_prefill += 1
             self.ticks_overlap += 1
+            kind = "mixed"
         elif decoding:
             nxt_dev = self._decode_tick(kv_d)
             self.ticks_decode += 1
+            kind = "decode"
         else:
             self._chunk_tick(toks, off, ci, last, kv_p)
             self.ticks_prefill += 1
+            kind = "chunk"
 
         if decoding:
             for i in decoding:
@@ -548,23 +574,24 @@ class ContinuousEngine:
         if self.sync:
             # per-token observation: one fetch per tick (EOS stopping /
             # latency measurement)
-            nxt = nxt_dev.tolist() if nxt_dev is not None else None
-            now = time.time()
+            first = ci is not None and self.state[ci] == DECODE and self.gen_count[ci] == 1
+            with span("serve.wait"):
+                nxt = nxt_dev.tolist() if nxt_dev is not None else None
+                tok = int(self.toks[ci, 0]) if first else None
+            now = time.perf_counter()
             for i in decoding:
                 req = self.slots[i]
                 req.generated.append(nxt[i])
                 req.token_times.append(now)
-            if ci is not None and self.state[ci] == DECODE \
-                    and self.gen_count[ci] == 1:
+            if first:
                 req = self.slots[ci]
-                req.t_first = now
-                req.generated.append(int(self.toks[ci, 0]))
+                req.generated.append(tok)
                 req.token_times.append(now)
 
         for i in range(self.batch):
             if self.state[i] == DECODE:
                 self._maybe_retire(i)
-        return True
+        return kind
 
     def _maybe_retire(self, i: int):
         req = self.slots[i]
@@ -572,11 +599,12 @@ class ContinuousEngine:
         if self.gen_count[i] >= limit or \
                 (self.eos is not None and req.generated
                  and req.generated[-1] == self.eos):
-            if not self.sync:
-                # one blocking read per request: its finished token row
-                req.generated = self.buf[i, :self.gen_count[i]].tolist()
-            req.done = True
-            self._set_state(i, FREE)
+            with span("serve.retire", rid=req.rid):
+                if not self.sync:
+                    # one blocking read per request: its finished token row
+                    req.generated = self.buf[i, :self.gen_count[i]].tolist()
+                req.done = True
+                self._set_state(i, FREE)
             self.lengths[i] = 0
 
     def run(self) -> int:
@@ -699,6 +727,8 @@ def main(argv=None):
                     help="reduced config instead of full width")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", metavar="PATH",
+                    help="write the run's spans to PATH as Chrome-trace JSON")
     args = ap.parse_args(argv)
 
     dev = device_of(args.device)
@@ -713,26 +743,27 @@ def main(argv=None):
                              generator=gen, device=dev)
                for _ in range(args.batch)]
     t0 = time.perf_counter()
-    if args.engine == "alternating":
-        eng = ServeEngine(cfg, params, args.batch, max_len)
-        for i, prompt in enumerate(prompts):
-            eng.admit(Request(i, prompt), slot=i)
-        for _ in range(args.gen - 1):
-            eng.step()
-        reqs = [r for r in eng.slots if r is not None]
-    else:
-        ceng = ContinuousEngine(cfg, params, args.batch, max_len,
-                                chunk=args.chunk, use_kernels=args.kernels,
-                                max_new=args.gen)
-        reqs = [Request(i, p) for i, p in enumerate(prompts)]
-        for r in reqs:
-            ceng.submit(r)
-        ceng.run()
-        print(f"overlap ratio: {ceng.overlap_ratio():.2f}, page={ceng.page}")
-        if ceng.cuda_graphs:
-            print(f"graphs: {len(ceng.graphs)} decode, {len(ceng.chunk_graphs)} chunk, "
-                  f"captured in {ceng.capture_seconds:.2f} s, pool "
-                  f"{ceng.graph_pool_bytes() / 2**20:.1f} MiB")
+    with recording() if args.trace else nullcontext():
+        if args.engine == "alternating":
+            eng = ServeEngine(cfg, params, args.batch, max_len)
+            for i, prompt in enumerate(prompts):
+                eng.admit(Request(i, prompt), slot=i)
+            for _ in range(args.gen - 1):
+                eng.step()
+            reqs = [r for r in eng.slots if r is not None]
+        else:
+            ceng = ContinuousEngine(cfg, params, args.batch, max_len,
+                                    chunk=args.chunk, use_kernels=args.kernels,
+                                    max_new=args.gen)
+            reqs = [Request(i, p) for i, p in enumerate(prompts)]
+            for r in reqs:
+                ceng.submit(r)
+            ceng.run()
+            print(f"overlap ratio: {ceng.overlap_ratio():.2f}, page={ceng.page}")
+            if ceng.cuda_graphs:
+                print(f"graphs: {len(ceng.graphs)} decode, {len(ceng.chunk_graphs)} chunk, "
+                      f"captured in {ceng.capture_seconds:.2f} s, pool "
+                      f"{ceng.graph_pool_bytes() / 2**20:.1f} MiB")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
@@ -743,6 +774,11 @@ def main(argv=None):
           f"{args.engine})")
     for req in reqs:
         print(f"req{req.rid}: {req.generated[:10]}")
+    if args.trace:
+        session = last_session()
+        write_chrome(args.trace, session)
+        print(f"trace: {len(session['spans'])} spans ({session['dropped']} dropped) "
+              f"written to {args.trace}")
 
 
 if __name__ == "__main__":

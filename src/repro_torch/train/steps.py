@@ -16,6 +16,12 @@ installed by the launcher) the steps run under
 ``sharding.constrain_grads``, as the reference's accumulators do, and
 are then placed as their parameters (a partial gradient is reduced);
 the metrics come back as plain (replicated) scalars.
+
+A step records the spans of :mod:`repro_torch.spans` while recording is
+on: ``train.step``, and under it ``train.forward`` (the loss),
+``train.backward`` (its gradients, with the recomputation) for each
+micro-batch and ``train.adamw`` (clipping and the update), each with its
+device interval.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from ..configs.registry import ArchConfig
 from ..model import transformer as T
 from ..model.sharding import constrain_grads, full, placed_like, sharded
 from ..optim import adamw
+from ..spans import span
 from ..tree import leaves, with_leaves
 
 
@@ -52,7 +59,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, n_micro: int):
 
     def train_step(params, opt_state: adamw.AdamWState,
                    batch: Dict[str, torch.Tensor]):
-        with sharded():
+        with span("train.step"), sharded():
             return step(params, opt_state, batch)
 
     def step(params, opt_state, batch):
@@ -67,12 +74,16 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, n_micro: int):
         micro = zip(batch["tokens"].split(mb), batch["labels"].split(mb),
                     *(x.split(mb) for x in extra.values()))
         losses, grads = [], None
+        dev = flat_p[0].device
         for i, (tok, lab, *ex) in enumerate(micro):
-            loss = T.lm_loss(params, cfg, tok, lab, **dict(zip(extra, ex)))
+            with span("train.forward", dev, micro=i):
+                loss = T.lm_loss(params, cfg, tok, lab, **dict(zip(extra, ex)))
+            with span("train.backward", dev, micro=i):
+                g = list(torch.autograd.grad(loss, flat_p))
             # at their parameters' placements: AdamW updates in place,
             # which DTensor allows only there
             g = [placed_like(gi, p) for gi, p in zip(leaves(constrain_grads(
-                with_leaves(params, list(torch.autograd.grad(loss, flat_p))))), flat_p)]
+                with_leaves(params, g))), flat_p)]
             losses.append(loss.detach())
             if n_micro == 1:
                 grads = g
@@ -92,8 +103,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, n_micro: int):
             with torch.no_grad():
                 torch._foreach_div_(acc, float(n_micro))
             grads = acc
-        params, opt_state, metrics = adamw.update(
-            opt_cfg, with_leaves(params, list(grads)), opt_state, params)
+        with span("train.adamw", dev):
+            params, opt_state, metrics = adamw.update(
+                opt_cfg, with_leaves(params, list(grads)), opt_state, params)
         metrics = dict(metrics, loss=torch.stack([full(x) for x in losses]).mean())
         return params, opt_state, {k: full(v) for k, v in metrics.items()}
 
