@@ -48,8 +48,8 @@ Phases, each of which exits nonzero on failure:
    -fopenmp``), printed with the host's CPU model and the card line; the
    kernels past a 180 s budget are left out and named;
 1. build — compile ``src/repro_torch/csrc/*.cu`` for ``sm_90a``, and
-   print the matmul and flash kernels' registers and spills
-   (``-Xptxas -v``);
+   print the matmul, flash and decode attention kernels' registers and
+   spills (``-Xptxas -v``);
 2. kernels — each kernel against its plain PyTorch version on the card
    at the serving paths' shapes, with the tolerance printed beside the
    measured error, and its time beside the plain version's, the one
@@ -75,7 +75,15 @@ Phases, each of which exits nonzero on failure:
    stand which backend ``scaled_dot_product_attention`` takes for the
    library call and each backend's time, and, for both kernels, a sweep
    of the launch geometry at the serving shapes (for flash the ring
-   depth, at head dims 64, 128 and 256).  Last, the port's kernel bench
+   depth, at head dims 64, 128 and 256).  Kernel E (decode attention)
+   at the docqa decode tick (16 slots over a 4096-row bucket, lengths
+   from docqa's prompt range, a free slot and one prefilled past the
+   bucket) at every served head layout, gemma3's window among them: within
+   one bf16 ulp of its plain version (``DECODE_ULP_FLOOR``), two launches
+   bit-identical, a captured launch replayed with new lengths equal to an
+   eager launch with them, its time beside its bound (the valid rows'
+   bytes), the plain version's and ``scaled_dot_product_attention``'s
+   (the yardstick only), and a sweep of its rows per split.  Last, the port's kernel bench
    (``repro_torch.kernels.bench``): its smoke gate, every kernel at the
    reference bench's smoke shapes against its plain version, must count
    no failure, and its timings are printed;
@@ -103,8 +111,9 @@ Phases, each of which exits nonzero on failure:
    slot's KV rows, lengths, tokens, token buffer and positions, and the
    Mamba layers' conv and SSM states).  Capturing a graph first runs one
    eager tick in sync debug mode "error" (a host sync in the tick fails
-   the run); a decode capture fails if a hand-written kernel launched:
-   none runs inside a decode tick at these shapes;
+   the run).  Every decode tick's attention layers launch kernel E
+   (decode attention) once each: its launches must be the attention
+   layers times the decode ticks;
 4. serve — the same for ``falcon_mamba_7b`` at full width and depth
    (64 Mamba layers, d_model 4096), after granite's engine and weights
    are freed.  Every prefill chunk of that traffic has 32 rows or more,
@@ -754,9 +763,10 @@ def warm_through_daemon(cfg, max_len: int, rows) -> list:
 
 
 def phase_build() -> float:
-    """Build the library; meanwhile compile ``matmul.cu`` and
-    ``flash_attention.cu`` once more with ``-Xptxas -v`` (one nvcc each,
-    started together) and print their kernels' registers and spills."""
+    """Build the library; meanwhile compile ``matmul.cu``,
+    ``flash_attention.cu`` and ``decode_attention.cu`` once more with
+    ``-Xptxas -v`` (one nvcc each, started together) and print their
+    kernels' registers and spills."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from repro_torch.kernels import build
@@ -766,7 +776,7 @@ def phase_build() -> float:
         [nvcc, *build.CUDA_FLAGS, "-Xptxas", "-v", "-c", str(build.CSRC / src),
          "-o", str(build.BUILD_DIR / f"ptxas_{src[:-3]}.o")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src in ("matmul.cu", "flash_attention.cu")}
+        for src in ("matmul.cu", "flash_attention.cu", "decode_attention.cu")}
     outs = {}
     try:
         build.load_library()
@@ -1403,6 +1413,150 @@ def phase_selective_scan(gen: torch.Generator) -> dict:
     return rec
 
 
+# Kernel E at the docqa decode tick: 16 slots over a 4096-row bucket, the
+# decoding slots' lengths drawn from docqa's prompt range; slot 0 is free
+# (length 0) and the last slot is being prefilled past the bucket, as a
+# tick's inactive slots are.  Head layouts (name, h, hkv, d, window) of the
+# served attention models.
+DECODE_SLOTS = 16
+DECODE_KV = 4096
+DECODE_LENS = (1024, 3840)
+DECODE_LAYOUTS = (("granite", 32, 8, 64, 0), ("gemma3 local", 8, 4, 256, 1024),
+                  ("gemma3 global", 8, 4, 256, 0), ("qwen3_moe", 32, 4, 128, 0),
+                  ("qwen2_vl", 28, 4, 128, 0), ("seamless", 16, 16, 64, 0))
+
+
+# Kernel E and its plain version compute f32 sums of the same terms in other
+# orders, each rounded once to bf16: they agree within one bf16 ulp, except
+# where a sum over thousands of rows cancels to near zero and the orders'
+# f32 rounding (some 3e-8 at most, seen at the served layouts) reaches a
+# bf16 ulp.  So elements under 2^-16 in magnitude are held to the ulp at
+# 2^-16 (2^-23, about 1.2e-7).
+DECODE_ULP_FLOOR = 2.0 ** -16
+
+
+def within_bf16_ulp(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Require every element of ``got`` within one bf16 ulp of ``want``,
+    the ulp taken at the larger magnitude of the two and at least
+    DECODE_ULP_FLOOR's; returns the largest difference in ulps."""
+    g, w = got.float(), want.float()
+    require(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(DECODE_ULP_FLOOR)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    worst = float(((g - w).abs() / ulp).max())
+    print(f"  {name}: max difference {worst:.2f} bf16 ulp (tolerance 1) "
+          f"{'PASS' if worst <= 1 else 'FAIL'}")
+    require(worst <= 1, f"{name}: kernel disagrees with its plain version")
+    return worst
+
+
+def decode_operands(gen: torch.Generator, h: int, hkv: int, d: int):
+    """q, k/v as the first DECODE_KV rows of a cache, and the lengths."""
+    b = DECODE_SLOTS
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    kc, vc = (torch.randn((b, DECODE_KV + 256, hkv, d), generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    lo, hi = DECODE_LENS
+    lens = torch.randint(lo, hi + 1, (b,), generator=gen, device="cuda")
+    lens[0], lens[-1] = 0, DECODE_KV + 100
+    return q, kc[:, :DECODE_KV], vc[:, :DECODE_KV], lens
+
+
+def decode_rows(lens: torch.Tensor, window: int) -> int:
+    """Rows the decode attention reads over every slot: its valid rows."""
+    hi = torch.clamp(lens + 1, max=DECODE_KV)
+    lo = torch.clamp(lens - window + 1, min=0) if window else torch.zeros_like(lens)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def phase_decode_attention(gen: torch.Generator) -> dict:
+    """Kernel E against its plain version at each served head layout:
+    within one bf16 ulp, two launches bit-identical, a graph-captured
+    launch that reads new lengths at its replay bit for bit against an
+    eager launch with them; its time beside its bound (the valid rows'
+    bf16 K and V, q and out, at 3.35 TB/s), the plain version's and
+    ``scaled_dot_product_attention``'s (the yardstick only); last, a sweep
+    of the rows per split at granite's layout."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+
+    print("[kernels] decode attention (csrc/decode_attention.cu) vs "
+          "ref.paged_decode_attention_ref")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases, worst = [], 0.0
+    for name, h, hkv, d, window in DECODE_LAYOUTS:
+        q, k, v, lens = decode_operands(gen, h, hkv, d)
+        chunk, splits = da.geometry(DECODE_KV, DECODE_SLOTS * hkv, d, sms)
+        got = da.paged_decode_attention(q, k, v, lens, window)
+        again = da.paged_decode_attention(q, k, v, lens, window)
+        want = ref.paged_decode_attention_ref(q, k, v, lens, window)
+        torch.cuda.synchronize()
+        label = (f"{name}: b={DECODE_SLOTS} h={h}/{hkv} d={d} kv_len={DECODE_KV} "
+                 f"window={window} lengths {lens.tolist()} split {chunk} rows x {splits}")
+        worst = max(worst, within_bf16_ulp(label, got, want))
+        # captured with one set of lengths, replayed with another
+        buf = lens.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            da.paged_decode_attention(q, k, v, buf, window)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = da.paged_decode_attention(q, k, v, buf, window)
+        new = torch.randint(*DECODE_LENS, (DECODE_SLOTS,), generator=gen, device="cuda")
+        buf.copy_(new)
+        graph.replay()
+        eager = da.paged_decode_attention(q, k, v, new, window)
+        torch.cuda.synchronize()
+        same, replay_same = torch.equal(got, again), torch.equal(captured, eager)
+        print(f"    two launches bit-identical: {same}; graph replay with new lengths "
+              f"equal to an eager launch with them: {replay_same}")
+        require(same and replay_same, f"decode attention {name}: launches differ")
+        rows = decode_rows(lens, window)
+        nbytes = rows * hkv * d * 2 * 2 + 2 * q.numel() * 2
+        bms, by = bound_ms(nbytes, 4.0 * rows * h * d, PEAK_F32)
+        ms = time_ms(lambda: da.paged_decode_attention(q, k, v, lens, window))
+        hus = host_us(lambda: da.paged_decode_attention(q, k, v, lens, window))
+        plain = time_ms(lambda: ref.paged_decode_attention_ref(q, k, v, lens, window))
+        j = torch.arange(DECODE_KV, device="cuda")
+        mask = (j <= lens[:, None]) & ((j > lens[:, None] - window) if window else True)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask[:, None, None, :], enable_gqa=True))
+        print(f"  time {name}: kernel {ms:.4f} ms (host {hus:.1f} us/call; "
+              f"{100 * bms / ms:.1f}% of its bound), plain {plain:.4f} ms, "
+              f"scaled_dot_product_attention {lib:.4f} ms, bound {bms:.4f} ms ({by}: "
+              f"{rows} valid rows of {DECODE_SLOTS * DECODE_KV})")
+        cases.append(dict(shape=[DECODE_SLOTS, h, hkv, d, DECODE_KV, window], ms=ms,
+                          plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                          host_us=hus, chunk=chunk, splits=splits))
+    sweep_decode_splits(gen)
+    first = cases[0]
+    return dict(name="decode_attention", route="cuda",
+                source="src/repro_torch/csrc/decode_attention.cu", replaces=None,
+                max_abs_err=worst, cases=cases,
+                **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")})
+
+
+def sweep_decode_splits(gen: torch.Generator) -> None:
+    """Kernel E's time at granite's layout against the rows per split
+    (``da.geometry`` picks one from kv_len and b·hkv)."""
+    from repro_torch.kernels import decode_attention as da
+
+    _, h, hkv, d, window = DECODE_LAYOUTS[0]
+    q, k, v, lens = decode_operands(gen, h, hkv, d)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    picked, _ = da.geometry(DECODE_KV, DECODE_SLOTS * hkv, d, sms)
+    out = torch.empty_like(q)
+    times = {}
+    for chunk in sorted({min(da.tile_rows(d) * n, DECODE_KV) for n in (1, 2, 3, 4, 6, 8, 16, 32)}):
+        times[chunk] = time_ms(lambda: da.launch(q, k, v, lens, out, window, chunk))
+    print(f"  rows per split at granite's layout (picked {picked}): " + ", ".join(
+        f"{c} x {-(-DECODE_KV // c)}: {t:.4f} ms" for c, t in times.items()))
+
+
 def phase_bench() -> None:
     """The port's kernel bench on the card: its smoke gate must count no
     failure; then its timings (``repro_torch.kernels.bench``)."""
@@ -1416,12 +1570,13 @@ def phase_bench() -> None:
 
 
 def kernel_modules() -> dict:
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as msc
     from repro_torch.kernels import matmul_polytops as mm
     from repro_torch.kernels import scan_gate as sg
     return {"matmul": mm, "flash_attention": fa, "scan_gate": sg,
-            "selective_scan": msc}
+            "selective_scan": msc, "decode_attention": da}
 
 
 def collect_previous_phase() -> str:
@@ -1592,6 +1747,14 @@ def serve_traffic(eng, cfg, prompts, path_kernels, label: str) -> dict:
         require(launches["flash_attention"] == want,
                 f"flash launches {launches['flash_attention']}, expected {want} "
                 f"({full} full-attention layers x {eng.ticks_prefill} chunk ticks)")
+    if "decode_attention" in path_kernels:
+        # every decode tick's attention layers, the k steps of _decode_k
+        # each counted as a tick
+        attn = sum(spec.mixer == "attn" for spec in T.layer_specs(cfg))
+        want = attn * eng.ticks_decode
+        require(launches["decode_attention"] == want,
+                f"decode attention launches {launches['decode_attention']}, expected "
+                f"{want} ({attn} attention layers x {eng.ticks_decode} decode ticks)")
     if "matmul" in path_kernels:
         # full chunks clear min_matmul_rows; ragged ones take plain matmuls
         full_chunks = sum(n // SERVE_CHUNK for n in SERVE_PLENS)
@@ -1995,7 +2158,7 @@ def phase_encdec(gpu: str) -> dict:
             memory, mem_launches = counted(lambda: T.encode(params, cfg, enc))
     n_enc, n_dec = cfg.enc_layers, cfg.n_layers
     want = {"matmul": 3 * (n_enc + n_dec), "flash_attention": n_dec, "scan_gate": 0,
-            "selective_scan": 0}
+            "selective_scan": 0, "decode_attention": 0}
     print(f"  prefill, {frames} stub frames and a {plen}-token prompt, kernels on: "
           f"launches {launches} (expected {want}: the SwiGLU MLP's three products in "
           f"every layer, {frames} and {plen} rows; kernel B in every decoder layer; the "
@@ -2123,7 +2286,7 @@ def phase_vlm(gpu: str) -> dict:
         prefill_step(params, batch)                       # warm-up
         (logits, pre), launches = counted(lambda: prefill_step(params, batch))
     want = {"matmul": 3 * cfg.n_layers, "flash_attention": cfg.n_layers, "scan_gate": 0,
-            "selective_scan": 0}
+            "selective_scan": 0, "decode_attention": 0}
     print(f"  prefill, a {fl}-row stub and a {plen}-token prompt ({rows} rows), kernels "
           f"on: launches {launches} (expected {want}: the SwiGLU MLP's three products "
           f"and kernel B in every layer)")
@@ -2689,19 +2852,20 @@ def card_phases(gpu: str, dryruns) -> list:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     records = [phase_matmul(gen), phase_flash(gen), phase_scan_gate(gen),
-               phase_selective_scan(gen)]
+               phase_selective_scan(gen), phase_decode_attention(gen)]
     phase_bench()
     # each path's counts, read around its own serve run
-    granite = phase_serve(gpu, "granite_3_2b", ("matmul", "flash_attention"))
+    attn = ("flash_attention", "decode_attention")
+    granite = phase_serve(gpu, "granite_3_2b", ("matmul", *attn))
     falcon = phase_serve(gpu, "falcon_mamba_7b", ("scan_gate",),
                          relative_logits=True)
-    gemma3 = phase_serve(gpu, "gemma3_4b", ("matmul", "flash_attention"),
+    gemma3 = phase_serve(gpu, "gemma3_4b", ("matmul", *attn),
                          check_offsets=(SERVE_CHUNK, 1280))
-    qwen3_moe = phase_serve(gpu, "qwen3_moe_30b_a3b", ("flash_attention",))
+    qwen3_moe = phase_serve(gpu, "qwen3_moe_30b_a3b", attn)
     encdec = phase_encdec(gpu)
-    seamless = phase_serve(gpu, ENCDEC_ARCH, ("matmul", "flash_attention"))
+    seamless = phase_serve(gpu, ENCDEC_ARCH, ("matmul", *attn))
     vlm = phase_vlm(gpu)
-    qwen2_vl = phase_serve(gpu, VLM_ARCH, ("matmul", "flash_attention"))
+    qwen2_vl = phase_serve(gpu, VLM_ARCH, ("matmul", *attn))
     phase_train(gpu)
     phase_dist(gpu, dryruns)
     for rec in records:

@@ -7,9 +7,10 @@ from typing import Dict
 
 @lru_cache(maxsize=None)
 def _wrappers():
-    from . import flash_attention, mamba_scan, matmul_polytops, scan_gate
+    from . import decode_attention, flash_attention, mamba_scan, matmul_polytops, scan_gate
     return {"matmul": matmul_polytops, "flash_attention": flash_attention,
-            "scan_gate": scan_gate, "selective_scan": mamba_scan}
+            "scan_gate": scan_gate, "selective_scan": mamba_scan,
+            "decode_attention": decode_attention}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -17,7 +17,7 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("matmul.cu", "flash_attention.cu", "scan_gate.cu")
+SOURCES = ("matmul.cu", "flash_attention.cu", "scan_gate.cu", "decode_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 
@@ -35,6 +35,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_scan_gate.restype = i
     lib.repro_selective_scan.argtypes = [p] * 4 + [i] * 6 + [p]
     lib.repro_selective_scan.restype = i
+    lib.repro_decode_attention_bf16.argtypes = [p] * 6 + [i] * 8 + [ll] * 8 + [p]
+    lib.repro_decode_attention_bf16.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -12,6 +12,8 @@ graph capture.
 Ports ``src/repro/kernels/ops.py`` and keeps its layouts: q is
 (b, s, h, d), k/v are (b, s, hkv, d), GQA has rep = h // hkv; the scans
 take a_bar/b_bar (b, s, di, st), c (b, s, st) and x/z (b, s, di).
+``paged_decode_attention`` (kernel E) has no counterpart there: the
+reference's ragged decode attention is plain jnp.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import mamba_scan as _ms
 from . import matmul_polytops as _mm
@@ -61,6 +64,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    kv_row=kv_row)
     return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                                    kv_row=kv_row)
+
+
+def paged_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lengths: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """One query row per slot over a page-aligned KV prefix: q (b, 1, h,
+    d); k/v (b, kv_len, hkv, d); ``lengths`` (b,) on q's device, never
+    read on the host.  Row j of slot i counts when j <= ``lengths[i]``
+    and, with a ``window``, j > ``lengths[i] - window``."""
+    _no_grad_through(q, k, v)
+    if _on_cuda(q):
+        return _da.paged_decode_attention(q, k, v, lengths, window)
+    return ref.paged_decode_attention_ref(q, k, v, lengths, window)
 
 
 def selective_scan(a_bar: torch.Tensor, b_bar: torch.Tensor,

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels (allclose targets).
 
 Ports ``src/repro/kernels/ref.py``: matmul, flash attention, the
-selective scan and the fused scan + skip + gate.  ``kernels/ops.py``
+selective scan and the fused scan + skip + gate; and the plain version of
+the decode attention kernel, which has no TPU counterpart.  ``kernels/ops.py``
 runs these whenever its tensors lie on the CPU; ``chip_smoke.py`` holds
 each CUDA kernel against them on the card.
 
@@ -13,11 +14,13 @@ changes no bit.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import torch
 
 NEG_INF = -1e30        # the flash kernel's mask value (flash_attention.py:28)
+DECODE_NEG_INF = -2.3819763e38   # model/attention.py's mask value
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -69,6 +72,30 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = v.transpose(1, 2).reshape(b * h, -1, d)
     out = attention_ref(qf, kf, vf, causal=causal, q_offset=q_offset)
     return out.reshape(b, h, sq, d).transpose(1, 2)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               lengths: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """q: (b, 1, h, d); k, v: (b, kv_len, hkv, d); lengths: (b,).  Row j
+    of slot i counts when j <= ``lengths[i]`` and, with a window, j >
+    ``lengths[i] - window``: the ragged decode's mask, computed op for op
+    as ``model/attention.py``'s ``_sdpa_dense`` computes it (f32 scores,
+    softmax and P·V over f32 copies of k and v), so the two agree bit for
+    bit.  Returns (b, 1, h, d) in v's dtype."""
+    b, sq, h, d = q.shape
+    kv_len, hkv = k.shape[1], k.shape[2]
+    j = torch.arange(kv_len, device=q.device)[None, None, :]
+    mask = j <= lengths[:, None, None]
+    if window:
+        mask &= j > (lengths[:, None, None] - window)
+    qf = q.float() / math.sqrt(d)
+    q_g = qf.reshape(b, sq, hkv, h // hkv, d)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", q_g, k.float())
+    logits = torch.where(mask.expand(b, sq, kv_len)[:, None, None, :, :], logits,
+                         torch.full_like(logits, DECODE_NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v.float())
+    return out.reshape(b, sq, h, d).to(v.dtype)
 
 
 def ssm_scan(a: torch.Tensor, b: torch.Tensor,

@@ -43,7 +43,9 @@ shared memory pool:
   one graph in all for a model without attention layers).  Pure decode
   ticks, the decode half of a mixed tick and each of the k steps of the
   steady-state path replay it; ``_decode_k`` replays it k times with no
-  host read between the replays;
+  host read between the replays.  With the kernels on, its attention is
+  kernel E, which reads the slots' lengths on the device, so one graph
+  serves every mix of lengths in its bucket;
 * a chunk tick replays a graph of :meth:`ContinuousEngine._chunk_step`,
   one per (chunk length, kv bucket), the reference's jit keys (a model
   without attention layers reads no kv bound: one per chunk length).
@@ -194,6 +196,7 @@ class ContinuousEngine:
         self._mode_kw = dict(enabled=use_kernels, **(kernel_opts or {}))
         if use_kernels:
             check_flash_head_dim(cfg, dev, chunk, KernelMode(**self._mode_kw).min_attn_q)
+            check_decode_head_dim(cfg, dev)
         # paged-KV geometry from the plan: the attention plan's kk tile
         # is the unit the flash kernel streams, so pages align with
         # kernel tiles
@@ -426,9 +429,7 @@ class ContinuousEngine:
         """Capture one tick at kv bound ``kv`` (decode, or with ``c`` a
         chunk of c rows) after a warm-up tick, both on a side stream.
         Neither advances the wrappers' launch counts: the capture's
-        launches are recorded and added at every replay.  A decode capture
-        raises if a hand-written kernel launched: none runs in a decode
-        tick."""
+        launches are recorded and added at every replay."""
         t0 = time.perf_counter()
         before = launch_counts()
         with self._side_stream():
@@ -437,9 +438,6 @@ class ContinuousEngine:
             graph = self._record(kv, c)
         after = launch_counts()
         add_launches({k: before[k] - n for k, n in after.items()})
-        if c is None and after != before:
-            raise RuntimeError(f"a hand-written kernel launched while the decode tick at "
-                               f"kv {kv} was captured ({before} -> {after})")
         dt = time.perf_counter() - t0
         self.capture_seconds += dt
         if c is not None:
@@ -652,6 +650,18 @@ def check_flash_head_dim(cfg, device: torch.device, chunk: int, min_attn_q: int)
         raise ValueError(f"{cfg.name}: head dim {cfg.hd} has no flash kernel (built for "
                          f"{ATTN_HEAD_DIMS}); serve with --chunk below {min_attn_q}, "
                          f"without --kernels, or on the CPU")
+
+
+def check_decode_head_dim(cfg, device: torch.device) -> None:
+    """Kernel mode on the card sends every decode tick's attention to
+    kernel E, which is built for the head dims in ``ATTN_HEAD_DIMS`` only:
+    refuse any other when the engine is made.  On the CPU its plain
+    version runs at every head dim."""
+    attends = any(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    if device.type == "cuda" and attends and cfg.hd not in ATTN_HEAD_DIMS:
+        raise ValueError(f"{cfg.name}: head dim {cfg.hd} has no decode attention kernel "
+                         f"(built for {ATTN_HEAD_DIMS}); serve without --kernels, or on "
+                         f"the CPU")
 
 
 def kernel_plan_shapes(cfg, max_len: int, chunk: int = 16, rows=()) -> list:

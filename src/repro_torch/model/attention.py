@@ -314,6 +314,9 @@ def paged_decode_attention(p, cfg: ArchConfig, x, k_cache, v_cache, lengths,
     the cache as the reference's ``dynamic_update_slice`` clamps);
     ``kv_len``: attention reads only ``cache[:, :kv_len]``.  Masked
     entries contribute exact zeros, so the page bound changes no bit.
+    With the kernel mode on (and q not a DTensor) the attention goes to
+    ``ops.paged_decode_attention`` (kernel E on the card), which reads
+    ``lengths`` on the device and each slot's valid rows in place.
     Returns (out, k_cache, v_cache)."""
     b = x.shape[0]
     positions = lengths[:, None].long()
@@ -324,11 +327,15 @@ def paged_decode_attention(p, cfg: ArchConfig, x, k_cache, v_cache, lengths,
     v_cache[rows, at] = v_new[:, 0].to(v_cache.dtype)
     kp = k_cache[:, :kv_len]
     vp = v_cache[:, :kv_len]
-    j = torch.arange(kv_len, device=x.device)[None, None, :]
-    mask = j <= lengths[:, None, None]
-    if window:
-        mask &= j > (lengths[:, None, None] - window)
-    out = _sdpa(q, kp, vp, mask.expand(b, 1, kv_len),
-                cfg.n_heads // cfg.n_kv_heads)
+    if mode().enabled and not is_dtensor(q):
+        from ..kernels import ops
+        out = ops.paged_decode_attention(q, kp, vp, lengths, window)
+    else:
+        j = torch.arange(kv_len, device=x.device)[None, None, :]
+        mask = j <= lengths[:, None, None]
+        if window:
+            mask &= j > (lengths[:, None, None] - window)
+        out = _sdpa(q, kp, vp, mask.expand(b, 1, kv_len),
+                    cfg.n_heads // cfg.n_kv_heads)
     out = out.reshape(b, 1, -1) @ p["wo"]
     return out, k_cache, v_cache

@@ -59,7 +59,7 @@ MATMUL_ALIGN = 1024            # the ring's alignment slack (swizzle atom)
 MATMUL_EPI_PAD = 8             # f32 row padding of the staged tile
 POW2 = (16, 32, 64, 128)
 ATTN_ROWS = 64                 # query rows of a block: one consumer warpgroup
-ATTN_HEAD_DIMS = (64, 128, 256)  # head dims csrc/flash_attention.cu is built for
+ATTN_HEAD_DIMS = (64, 128, 256)  # head dims of csrc/flash_attention.cu and decode_attention.cu
 ATTN_STAGES = 3                # depth of the K/V load ring
 ATTN_ALIGN = 1024              # the ring's alignment slack (swizzle atom)
 SCAN_THREADS = 512             # threads of a scan block: d tile × state

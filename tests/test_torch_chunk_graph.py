@@ -53,6 +53,7 @@ from repro.model import pallas_mode
 from repro.model import transformer as JT
 from repro_torch import bridge, kernels
 from repro_torch.configs.registry import get_arch
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul_polytops as mm
 from repro_torch.kernels import ops, ref
@@ -442,9 +443,9 @@ def test_replay_adds_the_captured_launches_and_warm_up_adds_none(monkeypatch):
     """A chunk body that launches two flash kernels and one matmul (a
     stand-in on the CPU): its capture's warm-up and the capture itself
     leave every count as it was; the graph records {flash 2, matmul 1}
-    and each replay adds that.  A decode capture during which a kernel
-    launched raises."""
-    for mod in (fa, mm):
+    and each replay adds that.  A decode capture records the launches of
+    its body (kernel E's, one a layer on the card) the same way."""
+    for mod in (fa, mm, da):
         monkeypatch.setattr(mod, "LAUNCHES", 0)
     eng = port_engine("granite_3_2b", 2, 32, 4, 8)
     monkeypatch.setattr(eng, "_side_stream", nullcontext)
@@ -466,15 +467,19 @@ def test_replay_adds_the_captured_launches_and_warm_up_adds_none(monkeypatch):
     graph = eng._capture(16, 8)
     assert kernels.launch_counts() == before
     assert graph.launches == {"matmul": 1, "flash_attention": 2, "scan_gate": 0,
-                              "selective_scan": 0}
+                              "selective_scan": 0, "decode_attention": 0}
     graph.replay()
     graph.replay()
     assert kernels.launch_counts() == dict(before, matmul=2, flash_attention=9)
     assert graph.replays == 2 and eng.chunk_capture_seconds > 0
 
     def launching_decode(kv):
-        fa.LAUNCHES += 1
+        da.LAUNCHES += 3
         decode_step(kv)
     monkeypatch.setattr(eng, "_decode_step", launching_decode)
-    with pytest.raises(RuntimeError, match="launched while the decode tick"):
-        eng._capture(16)
+    before = kernels.launch_counts()
+    graph = eng._capture(16)
+    assert kernels.launch_counts() == before
+    assert graph.launches == dict.fromkeys(before, 0) | {"decode_attention": 3}
+    graph.replay()
+    assert kernels.launch_counts() == dict(before, decode_attention=3)

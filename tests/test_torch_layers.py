@@ -155,6 +155,107 @@ def test_paged_decode_attention_matches_reference():
     close(tv, jv, LAYER_TOL)
 
 
+# Head layouts of the served attention models: (arch, heads, kv heads,
+# head dim, window); gemma3's local layers take the 1024-row window, its
+# global layers none.
+DECODE_LAYOUTS = {
+    "granite": ("granite_3_2b", 32, 8, 64, 0),
+    "gemma3_local": ("gemma3_4b", 8, 4, 256, 1024),
+    "gemma3_global": ("gemma3_4b", 8, 4, 256, 0),
+    "qwen2_vl": ("qwen2_vl_7b", 28, 4, 128, 0),
+    "qwen3_moe": ("qwen3_moe_30b_a3b", 32, 4, 128, 0),
+    "seamless": ("seamless_m4t_large_v2", 16, 16, 64, 0),
+}
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+@pytest.mark.parametrize("layout", sorted(DECODE_LAYOUTS))
+def test_paged_decode_attention_layouts_match_reference(layout, kernels, monkeypatch):
+    """The ragged decode's attention at each served head layout, with the
+    kernel mode off (the masked ``_sdpa``) and on (``ops``'s plain
+    version of kernel E), against the reference; ragged lengths with a
+    slot at 0, one at kv_len - 1 and one past kv_len.  The plain version
+    in ``kernels/ref.py`` agrees with ``_sdpa_dense`` bit for bit, in f32
+    and in bf16."""
+    from repro_torch.kernels import ops, ref
+
+    arch, h, hkv, hd, window = DECODE_LAYOUTS[layout]
+    kv_len = 1152 if window else 96
+    shape = dict(n_heads=h, n_kv_heads=hkv, head_dim=hd)
+    jcfg = jax_get_arch(arch).smoke().scaled(**shape)
+    tcfg = get_arch(arch).smoke().scaled(**shape)
+    r = rng(20)
+    p = {"wq": (jcfg.d_model, h * hd), "wk": (jcfg.d_model, hkv * hd),
+         "wv": (jcfg.d_model, hkv * hd), "wo": (h * hd, jcfg.d_model)}
+    p = {k: (r.standard_normal(s) / np.sqrt(s[0])).astype(np.float32) for k, s in p.items()}
+    if jcfg.qk_norm:
+        p.update(q_norm=(1 + 0.1 * r.standard_normal(hd)).astype(np.float32),
+                 k_norm=(1 + 0.1 * r.standard_normal(hd)).astype(np.float32))
+    lengths = np.array([0, kv_len - 1, kv_len + 30, kv_len // 3, kv_len - 70], np.int32)
+    b = len(lengths)
+    kc, vc = (r.standard_normal((b, kv_len + 64, hkv, hd)).astype(np.float32)
+              for _ in range(2))
+    x = r.standard_normal((b, 1, jcfg.d_model)).astype(np.float32)
+    want, jk, jv = JA.paged_decode_attention(
+        {k: jnp.asarray(a) for k, a in p.items()}, jcfg, jnp.asarray(x), jnp.asarray(kc),
+        jnp.asarray(vc), jnp.asarray(lengths), kv_len, window=window)
+    calls = []
+    routed = ops.paged_decode_attention
+    monkeypatch.setattr(ops, "paged_decode_attention",
+                        lambda *a, **kw: calls.append(a) or routed(*a, **kw))
+    tp = {k: torch.from_numpy(a) for k, a in p.items()}
+    tlen = torch.from_numpy(lengths).long()
+    with kernel_mode(enabled=kernels):
+        got, tk, tv = TA.paged_decode_attention(
+            tp, tcfg, torch.from_numpy(x), torch.from_numpy(kc), torch.from_numpy(vc),
+            tlen, kv_len, window=window)
+    assert len(calls) == int(kernels)
+    close(got, want, LAYER_TOL)
+    close(tk, jk, LAYER_TOL)
+    close(tv, jv, LAYER_TOL)
+
+    q, _, _ = TA._qkv(tp, tcfg, torch.from_numpy(x), tlen[:, None])
+    j = torch.arange(kv_len)[None, None, :]
+    mask = j <= tlen[:, None, None]
+    if window:
+        mask &= j > (tlen[:, None, None] - window)
+    for dt in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (t.to(dt) for t in (q, tk[:, :kv_len], tv[:, :kv_len]))
+        plain = ref.paged_decode_attention_ref(qd, kd, vd, tlen, window)
+        assert torch.equal(plain, TA._sdpa_dense(qd, kd, vd, mask.expand(b, 1, kv_len),
+                                                 h // hkv))
+
+
+def test_engine_decode_ticks_route_through_the_decode_kernel(monkeypatch):
+    """A CUDA-free engine in kernel mode sends every attention layer of
+    every decode tick through ``ops.paged_decode_attention`` (kernel E's
+    plain version here), and serves the same tokens as with the kernel
+    mode off."""
+    from repro_torch.kernels import ops
+
+    _, tcfg = cfgs()
+    calls = []
+    routed = ops.paged_decode_attention
+    monkeypatch.setattr(ops, "paged_decode_attention",
+                        lambda *a, **kw: calls.append(a) or routed(*a, **kw))
+
+    def serve(kernels: bool):
+        eng = tserve.ContinuousEngine(tcfg, weights()[1], 2, 48, chunk=8, max_new=4,
+                                      use_kernels=kernels)
+        reqs = [tserve.Request(i, torch.from_numpy(_prompt(30 + i, n)).long())
+                for i, n in enumerate((11, 6, 9))]
+        for req in reqs:
+            eng.submit(req)
+        eng.run()
+        return eng, [req.generated for req in reqs]
+
+    eng, toks = serve(True)
+    attn = sum(spec.mixer == "attn" for spec in TT.layer_specs(tcfg))
+    assert eng.ticks_decode > 0 and len(calls) == attn * eng.ticks_decode
+    calls.clear()
+    assert serve(False)[1] == toks and not calls
+
+
 def test_decode_attention_matches_reference():
     jcfg, tcfg = cfgs()
     jp, tp = weights()

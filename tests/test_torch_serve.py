@@ -374,6 +374,26 @@ def test_kernel_mode_refuses_head_dims_without_a_flash_kernel(arch, device, chun
         check()
 
 
+@pytest.mark.parametrize("arch,device,refused", [
+    ("smoke", "cuda", True),      # head dim 16: no decode attention kernel on the card
+    ("smoke", "cpu", False),      # the plain version takes every head dim
+    ("granite", "cuda", False),   # head dim 64
+    ("falcon", "cuda", False),    # no attention layers
+    ("gemma3", "cuda", False),    # head dim 256
+    ("qwen2_vl", "cuda", False),  # head dim 128
+])
+def test_kernel_mode_refuses_head_dims_without_a_decode_kernel(arch, device, refused):
+    cfg = {"smoke": TCFG, "granite": get_arch("granite_3_2b"),
+           "falcon": get_arch("falcon_mamba_7b").smoke(),
+           "gemma3": get_arch("gemma3_4b"), "qwen2_vl": get_arch("qwen2_vl_7b")}[arch]
+    check = functools.partial(tserve.check_decode_head_dim, cfg, torch.device(device))
+    if refused:
+        with pytest.raises(ValueError, match="no decode attention kernel"):
+            check()
+    else:
+        check()
+
+
 def test_engine_in_kernel_mode_on_cpu_takes_any_head_dim():
     eng = tserve.ContinuousEngine(TCFG, weights()[1], 1, 64, chunk=32,
                                   use_kernels=True)
