@@ -7,6 +7,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Dict
 
+from kinds import kind
+
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
 
@@ -65,21 +67,15 @@ def per_layer(name: str) -> list:
 
 def arch_config(config: Dict[str, Any]):
     """The port's ``ArchConfig`` of a configuration file: its ``port`` keys,
-    checked against the widths the reference reads from the top level."""
+    checked against the widths the reference reads from the top level (the
+    five every kind has, and those its kind names)."""
     from repro_torch.configs.registry import ArchConfig
 
     arch = ArchConfig(**config["port"])
     top = {"hidden_size": arch.d_model, "num_hidden_layers": arch.n_layers,
            "vocab_size": arch.vocab, "torch_dtype": arch.dtype,
            "tie_word_embeddings": arch.tie_embeddings}
-    if config["reference"] == "dense_gqa":
-        top.update(num_attention_heads=arch.n_heads, num_key_value_heads=arch.n_kv_heads,
-                   head_dim=arch.hd, intermediate_size=arch.d_ff,
-                   rms_norm_eps=arch.norm_eps)
-    elif config["reference"] == "mamba1":
-        top.update(intermediate_size=arch.d_inner, state_size=arch.ssm_state,
-                   conv_kernel=arch.conv_width, time_step_rank=arch.dt_rank_,
-                   layer_norm_epsilon=arch.norm_eps)
+    top.update(kind(config["reference"]).port_keys(arch))
     bad = {k: (config.get(k), v) for k, v in top.items() if config.get(k) != v}
     if bad:
         raise ValueError(f"{config['port']['name']}: the port's keys disagree with the "

@@ -1,7 +1,8 @@
 """Weights from the run's seed, made on the device in a few large calls, in
 the layout of the port's parameter tree (what a checkpoint of it holds):
 ``embed``, ``final_ln``, ``lm_head`` and ``layers[l]`` with ``ln1``,
-``mixer`` and, for a layer with an MLP, ``ln2`` and ``ffn``.
+``mixer`` and, for a layer with an MLP, ``ln2`` and ``ffn``.  The layers are
+drawn by the configuration's kind of model (``kinds/<kind>.py``).
 
 Each kind of tensor is drawn for all layers at once, in slabs, and each
 layer holds a view of its slab row (or, with ``leaves``, a copy of its own,
@@ -16,6 +17,8 @@ import math
 from typing import Any, Dict, List
 
 import torch
+
+from kinds import kind
 
 from .traffic import torch_seed
 
@@ -47,54 +50,34 @@ class Drawer:
         return out
 
 
-def _split(big: torch.Tensor, leaves: bool) -> List[torch.Tensor]:
+def split(big: torch.Tensor, leaves: bool) -> List[torch.Tensor]:
+    """The rows of a slab drawn for all layers: views, or with ``leaves``
+    copies of their own."""
     return [t.clone() if leaves else t for t in big.unbind(0)]
 
 
-def _zeros(n_layers: int, dim: int, device, leaves: bool) -> List[torch.Tensor]:
-    return _split(torch.zeros((n_layers, dim), dtype=torch.float32, device=device), leaves)
+def zeros(n_layers: int, dim: int, device, leaves: bool) -> List[torch.Tensor]:
+    return split(torch.zeros((n_layers, dim), dtype=torch.float32, device=device), leaves)
+
+
+def products(draw: Drawer, n_layers: int, shapes, leaves: bool) -> Dict[str, List[torch.Tensor]]:
+    """Each (name, fan_in, fan_out) of ``shapes`` drawn for all layers at
+    N(0, 1/fan_in), in that order, split into its layers' rows."""
+    return {name: split(draw.normal((n_layers, i, o), 1 / math.sqrt(i)), leaves)
+            for name, i, o in shapes}
 
 
 def make(config: Dict[str, Any], seed: int, device, leaves: bool = False) -> Dict[str, Any]:
-    """The parameter tree of ``config`` drawn from ``seed`` on ``device``."""
-    kind = config["reference"]
+    """The parameter tree of ``config`` drawn from ``seed`` on ``device``:
+    the embedding, then the layers as the configuration's kind draws them,
+    then an untied head."""
+    layers = kind(config["reference"]).layers
     dt = _dtype(config["torch_dtype"])
     draw = Drawer(seed, device, dt)
-    d, vocab, L = config["hidden_size"], config["vocab_size"], config["num_hidden_layers"]
+    d, vocab = config["hidden_size"], config["vocab_size"]
     p: Dict[str, Any] = {"embed": draw.normal((vocab, d), 0.02),
                          "final_ln": torch.zeros((d,), dtype=torch.float32, device=device)}
-    if kind == "dense_gqa":
-        hd = config["head_dim"]
-        q, kv, ff = config["num_attention_heads"] * hd, config["num_key_value_heads"] * hd, \
-            config["intermediate_size"]
-        mats = {name: _split(draw.normal((L, i, o), 1 / math.sqrt(i)), leaves) for name, i, o in (
-            ("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d),
-            ("w_gate", d, ff), ("w_up", d, ff), ("w_down", ff, d))}
-        ln1, ln2 = _zeros(L, d, device, leaves), _zeros(L, d, device, leaves)
-        p["layers"] = [{"ln1": ln1[i],
-                        "mixer": {k: mats[k][i] for k in ("wq", "wk", "wv", "wo")},
-                        "ln2": ln2[i],
-                        "ffn": {k: mats[k][i] for k in ("w_gate", "w_up", "w_down")}}
-                       for i in range(L)]
-    elif kind == "mamba1":
-        di, st, dtr, cw = (config["intermediate_size"], config["state_size"],
-                           config["time_step_rank"], config["conv_kernel"])
-        mats = {name: _split(draw.normal((L, i, o), 1 / math.sqrt(i)), leaves) for name, i, o in (
-            ("in_proj", d, 2 * di), ("x_proj", di, dtr + 2 * st), ("dt_proj", dtr, di),
-            ("out_proj", di, d))}
-        conv_w = _split(draw.normal((L, cw, di), 0.2), leaves)
-        a = torch.log(torch.arange(1, st + 1, dtype=torch.float32, device=device))
-        a_log = _split(a.expand(L, di, st).contiguous(), leaves)
-        d_skip = _split(torch.ones((L, di), dtype=torch.float32, device=device), leaves)
-        zeros = {k: _zeros(L, di, device, leaves) for k in ("conv_b", "dt_bias")}
-        ln1 = _zeros(L, d, device, leaves)
-        p["layers"] = [{"ln1": ln1[i], "mixer": {
-            "in_proj": mats["in_proj"][i], "conv_w": conv_w[i], "conv_b": zeros["conv_b"][i],
-            "x_proj": mats["x_proj"][i], "dt_proj": mats["dt_proj"][i],
-            "dt_bias": zeros["dt_bias"][i], "a_log": a_log[i], "d_skip": d_skip[i],
-            "out_proj": mats["out_proj"][i]}} for i in range(L)]
-    else:
-        raise ValueError(f"no weights for reference kind {kind!r}")
+    p["layers"] = layers(config, draw, device, leaves)
     if not config["tie_word_embeddings"]:
         p["lm_head"] = draw.normal((vocab, d), 0.02)
     return p

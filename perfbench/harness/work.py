@@ -10,6 +10,8 @@ from functools import lru_cache
 from pathlib import Path
 from typing import Any, Dict
 
+from kinds import kind
+
 
 @lru_cache(maxsize=1)
 def peaks() -> Dict[str, float]:
@@ -17,28 +19,20 @@ def peaks() -> Dict[str, float]:
 
 
 def matmul_params(cfg: Dict[str, Any]) -> int:
-    """Weights that every token multiplies through: the products of every
-    layer and the output head (the embedding is a lookup)."""
-    d, L, v = cfg["hidden_size"], cfg["num_hidden_layers"], cfg["vocab_size"]
-    if cfg["reference"] == "dense_gqa":
-        q = cfg["num_attention_heads"] * cfg["head_dim"]
-        kv = cfg["num_key_value_heads"] * cfg["head_dim"]
-        per = d * q + 2 * d * kv + q * d + 3 * d * cfg["intermediate_size"]
-    elif cfg["reference"] == "mamba1":
-        di, st, r = cfg["intermediate_size"], cfg["state_size"], cfg["time_step_rank"]
-        per = d * 2 * di + di * (r + 2 * st) + r * di + di * d
-    else:
-        raise ValueError(cfg["reference"])
-    return L * per + v * d
+    """Weights that a token multiplies through: the products of the layers,
+    as the configuration's kind counts them, and the output head (the
+    embedding is a lookup).  A kind whose layers differ by index counts
+    each layer's own products, and one that routes a token to some of its
+    experts counts those experts alone, not every expert held."""
+    return kind(cfg["reference"]).matmul_params(cfg) + cfg["vocab_size"] * cfg["hidden_size"]
 
 
 def attn_flops(cfg: Dict[str, Any], start: int, n: int) -> float:
     """Score and value products of ``n`` query rows at positions start..
     start+n-1, each over its causal prefix, over every attention layer."""
-    if cfg["reference"] != "dense_gqa":
-        return 0.0
+    layers, heads, hd = kind(cfg["reference"]).attention(cfg)
     keys = n * start + n * (n + 1) / 2
-    return 4.0 * cfg["num_attention_heads"] * cfg["head_dim"] * keys * cfg["num_hidden_layers"]
+    return 4.0 * heads * hd * keys * layers
 
 
 def forward_flops(cfg: Dict[str, Any], start: int, n: int) -> float:

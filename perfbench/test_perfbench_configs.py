@@ -14,6 +14,7 @@ HERE = Path(__file__).resolve().parent
 sys.path[:0] = [str(HERE), str(HERE.parent / "src")]
 
 import tiny  # noqa: E402
+import kinds  # noqa: E402
 from harness import weights  # noqa: E402
 from harness.cell import arch_config, as_run  # noqa: E402
 
@@ -30,12 +31,13 @@ def test_runs_as_names_published_keys(name):
     assert arch.tie_embeddings == raw["tie_word_embeddings"]
 
 
-@pytest.mark.parametrize("kind", ("dense_gqa", "mamba1"))
+@pytest.mark.parametrize("kind", kinds.names())
 def test_leaf_names_follow_the_leaves(kind):
     cfg = tiny.config(kind, "float32")
     tree = weights.make(cfg, 3, "cpu")
     names, leaves = weights.leaf_names(tree), weights.leaves(tree)
     assert len(names) == len(leaves) == len(set(names))
     assert names[0] == "embed" and ("lm_head" in names) is (not cfg["tie_word_embeddings"])
-    layer = "layers.1.mixer.wq" if kind == "dense_gqa" else "layers.1.mixer.in_proj"
-    assert torch.equal(leaves[names.index(layer)], tree["layers"][1]["mixer"][layer.split(".")[-1]])
+    first = next(iter(tree["layers"][1]["mixer"]))        # wq, in_proj
+    assert torch.equal(leaves[names.index(f"layers.1.mixer.{first}")],
+                       tree["layers"][1]["mixer"][first])

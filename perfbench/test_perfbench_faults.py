@@ -21,10 +21,12 @@ sys.path[:0] = [str(HERE), str(HERE.parent / "src")]
 
 import tiny  # noqa: E402
 from harness import check, runner  # noqa: E402
-from harness.cell import Cell  # noqa: E402
+from harness.cell import Cell, benchmark, load  # noqa: E402
 
-CELLS = {"granite_3_2b.docqa": "dense_gqa", "falcon_mamba_7b.docqa": "mamba1"}
-CELLS = {c: k for c, k in CELLS.items() if (HERE / "limits" / f"{c}.json").exists()}
+# every serving cell with limits, at the small configuration of its kind
+CELLS = {w["name"]: cell.config["reference"] for w in benchmark()["workloads"]
+         for cell in [load(w["name"])]
+         if cell.mix["kind"] == "serve" and (HERE / "limits" / f"{w['name']}.json").exists()}
 
 
 def token_altered(T, monkeypatch):

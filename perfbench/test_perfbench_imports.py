@@ -1,8 +1,9 @@
-"""What the benchmark loads: after the harness, the reference and every
-metric reader are imported and a small run has gone through them, no
+"""What the benchmark loads: after the harness, the kinds, the reference and
+every metric reader are imported and a small run has gone through them, no
 module's top-level name (compared whole) is JAX's, Flax's or the JAX
-package's; and the reference loads nothing of the port.  Each check runs
-in a fresh interpreter: the test process may hold JAX from other tests."""
+package's; and the reference and the kinds load nothing of the port.  Each
+check runs in a fresh interpreter: the test process may hold JAX from other
+tests."""
 from __future__ import annotations
 
 import json
@@ -32,7 +33,9 @@ def test_harness_and_reference_load_no_jax():
     got = fresh("""
 import importlib
 from harness import runner, serving, check, cell, traffic, trace, warmup, weights, window, work
-import reference, reference.common, reference.dense_gqa, reference.mamba1
+import kinds, reference, reference.common
+for k in kinds.names():
+    kinds.kind(k), reference.model(k)
 for p in sorted((runner.BENCH_DIR / "metrics").glob("*.py")):
     runner.reader(p.stem)
 import tiny
@@ -52,10 +55,10 @@ print(json.dumps({"forbidden": runner.forbidden_modules(), "tops": tops,
 
 def test_reference_loads_nothing_of_the_port():
     got = fresh("""
-import reference, reference.common, reference.dense_gqa, reference.mamba1
+import kinds, reference, reference.common
 from harness import weights
 import tiny
-for kind in ("dense_gqa", "mamba1"):
+for kind in kinds.names():
     cfg = tiny.config(kind)
     p = weights.make(cfg, 1, "cpu")
     reference.model(kind).logits(p, cfg, torch.arange(2, 40), [0, 37])
