@@ -17,7 +17,8 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("matmul.cu", "flash_attention.cu", "scan_gate.cu", "decode_attention.cu")
+SOURCES = ("matmul.cu", "flash_attention.cu", "scan_gate.cu", "decode_attention.cu",
+           "train_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 
@@ -37,6 +38,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_selective_scan.restype = i
     lib.repro_decode_attention_bf16.argtypes = [p] * 6 + [i] * 8 + [ll] * 8 + [p]
     lib.repro_decode_attention_bf16.restype = i
+    lib.repro_train_attention_fwd.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.repro_train_attention_fwd.restype = i
+    lib.repro_train_attention_bwd.argtypes = [p] * 11 + [i] * 5 + [p]
+    lib.repro_train_attention_bwd.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -2,18 +2,21 @@
 Hopper kernel, CPU tensors to its plain version.  Nothing else happens
 here — no fallback from one to the other.
 
-No kernel has a backward (the reference's Pallas kernels have no VJP
-either), so each wrapper refuses an input that requires grad while
-autograd records: on the CPU autograd would otherwise differentiate the
-plain version quietly, where the card's kernel cannot.  The check reads
-tensor flags only, so it costs no device work and holds inside a CUDA
-graph capture.
+Kernels A-E have no backward (the reference's Pallas kernels have no VJP
+either), so each of their wrappers refuses an input that requires grad
+while autograd records: on the CPU autograd would otherwise differentiate
+the plain version quietly, where the card's kernel cannot.  The check
+reads tensor flags only, so it costs no device work and holds inside a
+CUDA graph capture.  Kernel F, ``train_attention``, is the one with a
+backward: on the card a ``torch.autograd.Function`` whose backward is
+kernels too, on the CPU its plain version under autograd.
 
 Ports ``src/repro/kernels/ops.py`` and keeps its layouts: q is
 (b, s, h, d), k/v are (b, s, hkv, d), GQA has rep = h // hkv; the scans
 take a_bar/b_bar (b, s, di, st), c (b, s, st) and x/z (b, s, di).
-``paged_decode_attention`` (kernel E) has no counterpart there: the
-reference's ragged decode attention is plain jnp.
+``paged_decode_attention`` (kernel E) and ``train_attention`` (kernel F)
+have no counterpart there: the reference's ragged decode attention and
+its training attention are plain jnp.
 """
 from __future__ import annotations
 
@@ -27,14 +30,15 @@ from . import mamba_scan as _ms
 from . import matmul_polytops as _mm
 from . import ref
 from . import scan_gate as _sg
+from . import train_attention as _ta
 
 
 def _no_grad_through(*ts: Optional[torch.Tensor]) -> None:
-    """Refuse operands autograd would differentiate: no kernel has a backward."""
+    """Refuse operands autograd would differentiate: kernels A-E have no backward."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in ts):
-        raise RuntimeError("the hand-written kernels have no backward: run the "
-                           "kernel mode only on inputs that do not require grad")
+        raise RuntimeError("kernels A-E have no backward: run the kernel mode "
+                           "only on inputs that do not require grad")
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -96,3 +100,12 @@ def scan_gate(a_bar: torch.Tensor, b_bar: torch.Tensor, c: torch.Tensor,
     if _on_cuda(a_bar):
         return _sg.scan_gate(a_bar, b_bar, c, x_skip, d_skip, z, h0=h0)
     return ref.scan_gate_ref(a_bar, b_bar, c, x_skip, d_skip, z, h0=h0)
+
+
+def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention of the training step, differentiable: q (b, s,
+    h, d), k/v (b, s, hkv, d), row i sees rows j <= i.  On the card kernel
+    F (bf16, head dims 64 and 128), on the CPU its plain version."""
+    if _on_cuda(q):
+        return _ta.train_attention(q, k, v)
+    return ref.train_attention_ref(q, k, v)

@@ -1,10 +1,12 @@
 """Plain PyTorch versions of the kernels (allclose targets).
 
 Ports ``src/repro/kernels/ref.py``: matmul, flash attention, the
-selective scan and the fused scan + skip + gate; and the plain version of
-the decode attention kernel, which has no TPU counterpart.  ``kernels/ops.py``
-runs these whenever its tensors lie on the CPU; ``chip_smoke.py`` holds
-each CUDA kernel against them on the card.
+selective scan and the fused scan + skip + gate; and the plain versions of
+the decode attention kernel and of the training attention kernel, which
+have no TPU counterpart: both are :func:`sdpa_dense`, the port's plain
+masked attention (``model/attention.py`` runs it as ``_sdpa_dense``).
+``kernels/ops.py`` runs these whenever its tensors lie on the CPU;
+``chip_smoke.py`` holds each CUDA kernel against them on the card.
 
 The reference's scan oracles use an associative scan; here the
 recurrence is a sequential loop over time in f32, as the kernels run it.
@@ -20,7 +22,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 NEG_INF = -1e30        # the flash kernel's mask value (flash_attention.py:28)
-DECODE_NEG_INF = -2.3819763e38   # model/attention.py's mask value
+SDPA_NEG_INF = -2.3819763e38   # sdpa_dense's mask value (the reference's)
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -74,28 +76,50 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, sq, d).transpose(1, 2)
 
 
+def sdpa_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask: Optional[torch.Tensor], n_rep: int) -> torch.Tensor:
+    """Masked GQA attention as the reference's ``_sdpa`` computes it: q
+    (b, sq, h, d), k/v (b, skv, hkv, d), mask (b, sq, skv) or None; q
+    scaled by 1/sqrt(d) in f32, f32 scores, masked to ``SDPA_NEG_INF``,
+    softmax and P·V over f32 copies of k and v.  Returns (b, sq, h, d) in
+    v's dtype."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    qf = q.float() / math.sqrt(d)
+    q_g = qf.reshape(b, sq, hkv, n_rep, d)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", q_g, k.float())
+    if mask is not None:
+        logits = torch.where(mask[:, None, None, :, :], logits,
+                             torch.full_like(logits, SDPA_NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v.float())
+    return out.reshape(b, sq, h, d).to(v.dtype)
+
+
+def train_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention of the training step, the plain version of
+    kernel F: q (b, s, h, d), k/v (b, s, hkv, d), row i sees rows j <= i;
+    :func:`sdpa_dense` with the causal mask, differentiable by autograd."""
+    b, s = q.shape[:2]
+    i = torch.arange(s, device=q.device)
+    mask = (i[None, :] <= i[:, None])[None].expand(b, s, s)
+    return sdpa_dense(q, k, v, mask, q.shape[2] // k.shape[2])
+
+
 def paged_decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                lengths: torch.Tensor, window: int = 0) -> torch.Tensor:
     """q: (b, 1, h, d); k, v: (b, kv_len, hkv, d); lengths: (b,).  Row j
     of slot i counts when j <= ``lengths[i]`` and, with a window, j >
-    ``lengths[i] - window``: the ragged decode's mask, computed op for op
-    as ``model/attention.py``'s ``_sdpa_dense`` computes it (f32 scores,
-    softmax and P·V over f32 copies of k and v), so the two agree bit for
-    bit.  Returns (b, 1, h, d) in v's dtype."""
-    b, sq, h, d = q.shape
-    kv_len, hkv = k.shape[1], k.shape[2]
+    ``lengths[i] - window``: the ragged decode's mask through
+    :func:`sdpa_dense`, as ``model/attention.py`` computes it.  Returns
+    (b, 1, h, d) in v's dtype."""
+    b, sq, h, _ = q.shape
+    kv_len = k.shape[1]
     j = torch.arange(kv_len, device=q.device)[None, None, :]
     mask = j <= lengths[:, None, None]
     if window:
         mask &= j > (lengths[:, None, None] - window)
-    qf = q.float() / math.sqrt(d)
-    q_g = qf.reshape(b, sq, hkv, h // hkv, d)
-    logits = torch.einsum("bqgrd,bkgd->bgrqk", q_g, k.float())
-    logits = torch.where(mask.expand(b, sq, kv_len)[:, None, None, :, :], logits,
-                         torch.full_like(logits, DECODE_NEG_INF))
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v.float())
-    return out.reshape(b, sq, h, d).to(v.dtype)
+    return sdpa_dense(q, k, v, mask.expand(b, sq, kv_len), h // k.shape[2])
 
 
 def ssm_scan(a: torch.Tensor, b: torch.Tensor,

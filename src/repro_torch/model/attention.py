@@ -8,7 +8,9 @@ Sliding-window layers keep their mask.  The encoder and cross attention
 are plain ``_sdpa`` with no mask, as in the reference: no kernel runs
 them.  ``ATTN_CHUNK`` (the dry run's ``chunked_attn`` variants set it)
 sends the plain training/prefill attention through
-:func:`_sdpa_chunked`.  qwen2-vl's M-RoPE applies where
+:func:`_sdpa_chunked`.  A causal training call on the card goes to
+kernel F (``ops.train_attention``, :func:`_train_kernel_takes`), the one
+hand-written kernel with a backward.  qwen2-vl's M-RoPE applies where
 ``attention`` and ``decode_attention`` are given ``mrope_positions``;
 ``chunk_attention`` and ``paged_decode_attention`` pass none, so the
 serving engine runs qwen2-vl with plain rope, as the reference's does.
@@ -20,19 +22,18 @@ activation annotations (``sharding.shard_activation``).
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.registry import ArchConfig
+from ..kernels.ref import sdpa_dense as _sdpa_dense
+from ..kernels.train_attention import HEAD_DIMS as TRAIN_HEAD_DIMS
 from .kernel_mode import mode
 from .layers import apply_mrope, apply_rope, dense_init, rmsnorm, rmsnorm_init
 from .sharding import (contiguous_stride, is_dtensor, shard_activation, unshard,
                        write_at)
-
-NEG_INF = -2.3819763e38
 
 # q-chunked attention (flash-style memory behaviour without a kernel):
 # when > 0 and it divides a longer sequence, the plain training/prefill
@@ -91,20 +92,6 @@ def _sdpa(q, k, v, mask, n_rep: int):
     if is_dtensor(q):
         return _sdpa_sharded(q, k, v, mask, n_rep)
     return _sdpa_dense(q, k, v, mask, n_rep)
-
-
-def _sdpa_dense(q, k, v, mask, n_rep: int):
-    b, sq, h, d = q.shape
-    hkv = k.shape[2]
-    qf = q.float() / math.sqrt(d)
-    q_g = qf.reshape(b, sq, hkv, n_rep, d)
-    logits = torch.einsum("bqgrd,bkgd->bgrqk", q_g, k.float())
-    if mask is not None:
-        logits = torch.where(mask[:, None, None, :, :], logits,
-                             torch.full_like(logits, NEG_INF))
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v.float())
-    return out.reshape(b, sq, h, d).to(v.dtype)
 
 
 def _sdpa_sharded(q, k, v, mask, n_rep: int):
@@ -189,6 +176,21 @@ def causal_mask(sq: int, window: int = 0, device=None) -> torch.Tensor:
     return m[None]   # (1, sq, sq)
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _train_kernel_takes(q: torch.Tensor, window: int) -> bool:
+    """Kernel F (``ops.train_attention``) takes a causal call that autograd
+    records through q, on the card (not a DTensor), in bf16, without a
+    window or q chunks, at a head dim it is built for.  Inference (weights
+    that do not require grad), every CPU tensor and the sharded path keep
+    their plain routes."""
+    return (window == 0 and not ATTN_CHUNK and torch.is_grad_enabled() and q.requires_grad
+            and not is_dtensor(q) and _on_card(q) and q.dtype == torch.bfloat16
+            and q.shape[-1] in TRAIN_HEAD_DIMS)
+
+
 def attention(p, cfg: ArchConfig, x, positions, *, window: int = 0,
               mrope_positions=None, return_kv: bool = False):
     """Training/prefill self-attention (causal, optional sliding window)."""
@@ -196,7 +198,10 @@ def attention(p, cfg: ArchConfig, x, positions, *, window: int = 0,
     sq = x.shape[1]
     md = mode()
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    if md.enabled and window == 0 and sq >= md.min_attn_q:
+    if _train_kernel_takes(q, window):
+        from ..kernels import ops
+        out = ops.train_attention(q, k, v)
+    elif md.enabled and window == 0 and sq >= md.min_attn_q:
         out = _flash(q, k, v)
     elif ATTN_CHUNK and sq > ATTN_CHUNK and sq % ATTN_CHUNK == 0:
         out = _sdpa_chunked(q, k, v, n_rep, window, ATTN_CHUNK)

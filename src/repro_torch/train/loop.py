@@ -9,8 +9,10 @@ AdamW state and each batch as DTensors by ``param_pspecs`` and
 ``batch_pspec``; :meth:`Trainer.close` clears all of it.
 ``grad_compress`` is carried as in the reference, which never reads it.
 As in the reference, the trainer leaves the kernel mode as it finds it
-(off by default): no hand-written kernel has a backward, and the kernel
-wrappers refuse inputs that require grad.
+(off by default): kernels A-E have no backward, and their wrappers refuse
+inputs that require grad.  Kernel F, the training attention, needs no
+mode: ``model/attention.py`` routes each causal training call on the
+card to it.
 """
 from __future__ import annotations
 
